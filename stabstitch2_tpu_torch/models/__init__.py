@@ -1,0 +1,7 @@
+"""Model families as torch modules named like the reference checkpoints."""
+
+from stabstitch2_tpu_torch.models.smooth import SmoothNet
+from stabstitch2_tpu_torch.models.spatial import SpatialNet
+from stabstitch2_tpu_torch.models.temporal import TemporalNet
+
+__all__ = ["SpatialNet", "TemporalNet", "SmoothNet"]

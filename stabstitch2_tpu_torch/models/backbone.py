@@ -1,0 +1,135 @@
+"""ResNet-18 trunk and regression heads (port of ``models/backbone.py``).
+
+Parameter names follow the reference checkpoints (the keys that
+``stabstitch2_tpu/utils/torch_import.py`` maps from): the trunk is the
+reference's ``feature_extractor_stage1`` Sequential (conv1, bn1, relu,
+maxpool, layer1, layer2 at indices 0..5), heads are Sequentials of
+conv, relu, conv, relu, pool per stage and of Linear, ReLU, ... layers.
+
+Every module takes and returns NHWC tensors; NCHW exists only inside,
+around the convolutions.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+
+def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+def conv_out(n: int, stride: int = 2) -> int:
+    """Output size of a 3x3/7x7 'same'-padded conv or 3x3 pool at stride 2."""
+    return (n - 1) // stride + 1
+
+
+class BasicBlock(nn.Module):
+    """torchvision BasicBlock: two 3x3 convs + BN, identity/1x1 shortcut (NCHW)."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(cout)
+        self.relu = nn.ReLU()
+        self.conv2 = nn.Conv2d(cout, cout, 3, 1, 1, bias=False)
+        self.bn2 = nn.BatchNorm2d(cout)
+        self.downsample = None
+        if stride != 1 or cin != cout:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(cin, cout, 1, stride, bias=False),
+                nn.BatchNorm2d(cout))
+
+    def forward(self, x):
+        idt = x if self.downsample is None else self.downsample(x)
+        y = self.relu(self.bn1(self.conv1(x)))
+        return self.relu(self.bn2(self.conv2(y)) + idt)
+
+
+class ResNetStage1(nn.Sequential):
+    """conv1 -> bn -> relu -> maxpool -> layer1 -> layer2 (H/8, 128 ch)."""
+
+    def __init__(self):
+        super().__init__(
+            nn.Conv2d(3, 64, 7, 2, 3, bias=False), nn.BatchNorm2d(64),
+            nn.ReLU(), nn.MaxPool2d(3, 2, 1),
+            nn.Sequential(BasicBlock(64, 64), BasicBlock(64, 64)),
+            nn.Sequential(BasicBlock(64, 128, 2), BasicBlock(128, 128)))
+
+    def forward(self, x):
+        return nchw_to_nhwc(super().forward(nhwc_to_nchw(x)))
+
+
+class ResNetStage2(nn.Sequential):
+    """layer3 only (H/16, 256 ch)."""
+
+    def __init__(self):
+        super().__init__(nn.Sequential(BasicBlock(128, 256, 2),
+                                       BasicBlock(256, 256)))
+
+    def forward(self, x):
+        return nchw_to_nhwc(super().forward(nhwc_to_nchw(x)))
+
+
+class ConvHead(nn.Sequential):
+    """(conv3x3 -> relu) x2 -> maxpool2 per stage, bias-free convs."""
+
+    def __init__(self, cin: int, stage_features: Sequence[int]):
+        layers = []
+        for feat in stage_features:
+            layers += [nn.Conv2d(cin, feat, 3, 1, 1, bias=False), nn.ReLU(),
+                       nn.Conv2d(feat, feat, 3, 1, 1, bias=False), nn.ReLU(),
+                       nn.MaxPool2d(2, 2)]
+            cin = feat
+        super().__init__(*layers)
+
+    def forward(self, x):
+        return nchw_to_nhwc(super().forward(nhwc_to_nchw(x)))
+
+
+class MLPHead(nn.Sequential):
+    """Linear layers with ReLU between them; input flattened in C,H,W order."""
+
+    def __init__(self, dims: Sequence[int]):
+        layers = []
+        for i in range(len(dims) - 1):
+            layers.append(nn.Linear(dims[i], dims[i + 1]))
+            if i + 2 < len(dims):
+                layers.append(nn.ReLU())
+        super().__init__(*layers)
+
+    def forward(self, x):
+        return super().forward(nhwc_to_nchw(x).reshape(x.shape[0], -1))
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Random weights from ``generator``, in the JAX package's distributions.
+
+    Convolutions and linear layers: normal with variance 1/fan_in (Flax's
+    lecun_normal), regression-head convolutions 2/fan_in (he_normal),
+    zero biases, BatchNorm at identity statistics. Values differ from the
+    JAX package's (another generator); tests carry weights across with
+    ``utils.weights.from_jax_params`` instead.
+    """
+    head_convs = set()
+    for m in module.modules():
+        if isinstance(m, ConvHead):
+            head_convs.update(id(c) for c in m if isinstance(c, nn.Conv2d))
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
+                fan_in = m.weight[0].numel()
+                gain = 2.0 if id(m) in head_convs else 1.0
+                w = torch.randn(m.weight.shape, generator=generator)
+                m.weight.copy_(w * (gain / fan_in) ** 0.5)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()

@@ -1,0 +1,148 @@
+"""Thin-plate-spline solve and evaluation (port of ``ops/tps.py``).
+
+The (P+3)x(P+3) system is solved in float32, as the JAX package does
+(PARITY.md "Known deviations": the evaluated coordinates stay within
+~0.015 px of the reference's float64 solve at 360x480).
+
+:func:`tps_sample_coords` evaluates the spline point by point in one fixed
+order, ``a0 + a1*x + a2*y`` then ``+ w_p * U(d_p^2)`` for p = 0..P-1. That
+is the order of the fused composite-warp kernel (``csrc/fused_warp.cu``),
+so the kernel and this plain version give the same float32 coordinates,
+and no [B, P+3, H*W] basis is ever built.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+_RBF_EPS = 1e-6  # reference: U(d2) = d2 * log(d2 + 1e-6)
+
+
+def _rbf(d2: torch.Tensor) -> torch.Tensor:
+    return d2 * torch.log(d2 + _RBF_EPS)
+
+
+def _system(source: torch.Tensor) -> torch.Tensor:
+    """The TPS system matrix [B, P+3, P+3] for source points [B, P, 2]."""
+    B, P, _ = source.shape
+    kw = dict(dtype=source.dtype, device=source.device)
+    p = torch.cat([torch.ones(B, P, 1, **kw), source], dim=2)       # [B,P,3]
+    diff = p[:, :, None, :] - p[:, None, :, :]
+    r = _rbf(torch.sum(diff * diff, dim=3))                          # [B,P,P]
+    W_top = torch.cat([p, r], dim=2)
+    W_bot = torch.cat([torch.zeros(B, 3, 3, **kw), p.transpose(1, 2)], dim=2)
+    return torch.cat([W_top, W_bot], dim=1)
+
+
+def tps_params(source: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """TPS coefficients mapping ``source`` [B, P, 2] onto ``target``.
+
+    Returns T: [B, 2, P+3], affine part in columns 0..2, RBF weights after.
+    """
+    B = source.shape[0]
+    rhs = torch.cat([target, torch.zeros(B, 3, 2, dtype=target.dtype,
+                                         device=target.device)], dim=1)
+    return torch.linalg.solve(_system(source), rhs).transpose(1, 2)
+
+
+def tps_params_shared_source(source: torch.Tensor,
+                             targets: torch.Tensor) -> torch.Tensor:
+    """TPS coefficients for ONE source [P, 2] and many targets [B, P, 2].
+
+    The system is factored once and back-substituted for every target.
+    """
+    B = targets.shape[0]
+    LU, piv = torch.linalg.lu_factor(_system(source[None])[0])
+    rhs = torch.cat([targets, torch.zeros(B, 3, 2, dtype=targets.dtype,
+                                          device=targets.device)], dim=1)
+    P3 = rhs.shape[1]
+    flat = rhs.permute(1, 2, 0).reshape(P3, 2 * B)       # cols = (xy, batch)
+    sol = torch.linalg.lu_solve(LU, piv, flat)
+    return sol.reshape(P3, 2, B).permute(2, 1, 0)        # [B, 2, P+3]
+
+
+def _eval_grid_rows(points_x: torch.Tensor, points_y: torch.Tensor,
+                    source: torch.Tensor) -> torch.Tensor:
+    """Rows [1, x, y, U_1..U_P] for points [B, N]: [B, P+3, N]."""
+    px = source[:, :, 0:1]
+    py = source[:, :, 1:2]
+    r = _rbf((points_x[:, None, :] - px) ** 2 + (points_y[:, None, :] - py) ** 2)
+    B, N = source.shape[0], points_x.shape[-1]
+    ones = torch.ones(B, 1, N, dtype=source.dtype, device=source.device)
+    return torch.cat([ones, points_x[:, None, :].expand(B, 1, N),
+                      points_y[:, None, :].expand(B, 1, N), r], dim=1)
+
+
+def _span_step(span_n) -> float:
+    """Grid step 2/(span-1) of linspace(-1, 1, span).
+
+    A Python number divides in double precision (rounded to float32 where
+    it is used); a float32 scalar, as the compositor passes its true
+    canvas extent, divides in float32, as the JAX package does for a
+    traced extent.
+    """
+    if isinstance(span_n, (int, float)):
+        return 2.0 / (span_n - 1) if span_n > 1 else 0.0
+    s = np.float32(span_n)
+    if not s > 1:
+        return 0.0
+    return float(np.float32(2.0) / np.maximum(s - np.float32(1.0),
+                                              np.float32(1.0)))
+
+
+def grid_1d(n: int, span_n, dtype=torch.float32, device=None) -> torch.Tensor:
+    """linspace(-1, 1, span_n) extended with the same step to n points.
+
+    A canvas padded past its true extent keeps the true extent's
+    normalization (TPS is only similarity-invariant).
+    """
+    return -1.0 + _span_step(span_n) * torch.arange(n, dtype=dtype,
+                                                    device=device)
+
+
+def spline_eval(T: torch.Tensor, source: torch.Tensor, gx: torch.Tensor,
+                gy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Evaluate the spline at points gx, gy [B or 1, N] in the kernel's order.
+
+    T: [B, 2, P+3]; source: [B, P, 2]. Returns (x_s, y_s), each [B, N].
+    """
+    acc_x = T[:, 0, 0:1] + T[:, 0, 1:2] * gx + T[:, 0, 2:3] * gy
+    acc_y = T[:, 1, 0:1] + T[:, 1, 1:2] * gx + T[:, 1, 2:3] * gy
+    for p in range(source.shape[1]):
+        dx = gx - source[:, p, 0:1]
+        dy = gy - source[:, p, 1:2]
+        d2 = dx * dx + dy * dy
+        r = d2 * torch.log(d2 + _RBF_EPS)
+        acc_x = acc_x + T[:, 0, 3 + p:4 + p] * r
+        acc_y = acc_y + T[:, 1, 3 + p:4 + p] * r
+    return acc_x, acc_y
+
+
+def tps_sample_coords(T: torch.Tensor, source: torch.Tensor,
+                      out_size: Tuple[int, int],
+                      grid_span: Optional[Tuple[float, float]] = None,
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Spline over the normalized output grid at stride 1: (x_s, y_s) [B, H*W].
+
+    ``grid_span`` gives the true canvas extent when ``out_size`` is a
+    padded superset.
+    """
+    out_h, out_w = out_size
+    span_h, span_w = grid_span or out_size
+    kw = dict(dtype=T.dtype, device=T.device)
+    gx = grid_1d(out_w, span_w, **kw)[None, :].expand(out_h, out_w).reshape(1, -1)
+    gy = grid_1d(out_h, span_h, **kw)[:, None].expand(out_h, out_w).reshape(1, -1)
+    return spline_eval(T, source, gx, gy)
+
+
+def tps_transform_points(points: torch.Tensor, source: torch.Tensor,
+                         target: torch.Tensor,
+                         T: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Map points [B, N, 2] through the source->target spline: [B, N, 2]."""
+    if T is None:
+        T = tps_params(source, target)
+    rows = _eval_grid_rows(points[..., 0], points[..., 1], source)
+    return torch.einsum("bij,bjn->bin", T, rows).transpose(1, 2)
