@@ -17,13 +17,25 @@ Phases, each printing one JSON line with its seconds:
    the full width of the model (ResNet-18 trunks, 360x480 input, 7x9 mesh,
    7-frame window). The kernels' launch counts are set to 0 just before
    the run and read just after; each must be > 0.
-4. ``kernels``: each kernel against its plain PyTorch version on the card,
+4. ``routes``: the composite's gather route (route B: K3 coordinates, K4
+   sample) at full width, ``init_stitcher(rng_seed=0,
+   config=StitchConfig(fused_warp=False, download_format="yuv420"))`` and
+   ``stitch_arrays`` on the same clip, one warm-up and one timed run with
+   the launch counts set to 0 just before it and read just after (K3 and
+   K4 > 0, K2 0). Then, on the stitch phase's smooth meshes: route B's bgr
+   frames against route A's (AVERAGE and LINEAR, exactly equal); route
+   B's yuv420 against the conversion of its bgr frames and route A's
+   yuv420 against the conversion of the plain path's float fusion (both
+   exact); FAST mode and ``coord_stride=4`` on the card against the CPU.
+5. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the shapes the main path gives it, with CUDA-event times, the bound
    (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the H100
    SXM's published peaks) and the share of it reached. ``cost_volume``
    runs at both search ranges the path gives it (r=5 and r=3); its entry
    carries each as a case and, at the top, their launch-weighted mean.
-5. ``cpu_compare``: the same port on the CPU over the first 8 frames,
+   The warp kernels run on the first chunk of the stitch phase (16 images
+   onto the padded canvas); K3 and K4 carry the routes phase's launches.
+6. ``cpu_compare``: the same port on the CPU over the first 8 frames,
    against the card: smooth meshes, and composited frames on the same
    meshes with AVERAGE and with LINEAR fusion (LINEAR reads K2's coverage
    masks).
@@ -50,10 +62,12 @@ F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 
 # tolerances (see the docstrings of the checks below)
 CV_ATOL = 1e-5
-# K2's coverage mask against its plain version: a float32 ulp of a sample
-# coordinate near 500 px is 6e-5, so 1e-4 allows one rounding step of a
-# coordinate and fails any mask that is wrong by a real amount
+# K2's coverage mask and K4's samples against their plain versions: a
+# float32 ulp of a sample coordinate near 500 px is 6e-5, so 1e-4 allows
+# one rounding step of a coordinate and fails any value wrong by a real
+# amount (0 is expected: the same float32 operations in the same order)
 MASK_ATOL = 1e-4
+GATHER_ATOL = 1e-4
 MESH_ATOL_PX = 0.05
 FRAC_DIFF = 1e-2
 FRAC_DIFF_GT1 = 1e-4
@@ -202,14 +216,13 @@ def k1_entry(cases):
             "roofline_share": bms / ms, "cases": cases}
 
 
-def k2_entry(st, res, clip, launches):
-    """K2 against its plain version on the first chunk of the main path."""
+def first_chunk(st, res, clip):
+    """The warp kernels' inputs on the main path's first chunk: the two
+    views stacked [2n, H, W, 3], T, source, the padded canvas and the
+    true extent."""
     import numpy as np
     import torch
 
-    from stabstitch2_tpu_torch.ops import fused_warp_cuda
-    from stabstitch2_tpu_torch.ops.interp import support_mask
-    from stabstitch2_tpu_torch.ops.tps import tps_sample_coords
     from stabstitch2_tpu_torch.pipeline.compositor import (scale_meshes,
                                                            warp_inputs)
 
@@ -224,7 +237,19 @@ def k2_entry(st, res, clip, launches):
     im, T, src = warp_inputs(torch.from_numpy(v1[:n]).to(dev),
                              torch.from_numpy(v2[:n]).to(dev), m1, m2,
                              offset, span)
-    size = (c.pad_h, c.pad_w)
+    return im, T, src, (c.pad_h, c.pad_w), span
+
+
+def k2_entry(st, res, clip, launches):
+    """K2 against its plain version on the first chunk of the main path."""
+    import torch
+
+    from stabstitch2_tpu_torch.ops import fused_warp_cuda
+    from stabstitch2_tpu_torch.ops.interp import support_mask
+    from stabstitch2_tpu_torch.ops.tps import tps_coords_plain
+
+    im, T, src, size, span = first_chunk(st, res, clip)
+    H, W = im.shape[1:3]
     got = fused_warp_cuda.fused_warp_planes(im, T, src, size, grid_span=span)
     ref = fused_warp_cuda.fused_warp_planes_plain(im, T, src, size,
                                                   grid_span=span)
@@ -236,7 +261,7 @@ def k2_entry(st, res, clip, launches):
     lsb = int((g.round().clamp(0, 255) != r.round().clamp(0, 255)).sum())
     lsb_max = float((g.round().clamp(0, 255) - r.round().clamp(0, 255))
                     .abs().max())
-    x_s, y_s = tps_sample_coords(T, src, size, grid_span=span)
+    x_s, y_s = tps_coords_plain(T, src, size, grid_span=span)
     live = support_mask(x_s, y_s, H, W).reshape(im.shape[0], *size)
     dead_nonzero = int((g[~live] != 0).any(-1).sum())
     require(lsb_max <= 1, f"fused_warp: {lsb_max} uint8 levels vs plain")
@@ -271,6 +296,238 @@ def k2_entry(st, res, clip, launches):
             "mask_max_abs_err": mask_err, "mask_atol": MASK_ATOL,
             "live_frac": n_live / npix, "bytes": nbytes, "ops": ops,
             "roofline_share": bms / ms}
+
+
+def k3_entry(st, res, clip, launches):
+    """K3 against its plain version on the first chunk of the main path:
+    exactly equal (the same float32 operations in the same order)."""
+    import torch
+
+    from stabstitch2_tpu_torch.ops import tps_coords_cuda
+
+    im, T, src, size, span = first_chunk(st, res, clip)
+    got = tps_coords_cuda.tps_coords(T, src, size, grid_span=span)
+    ref = tps_coords_cuda.tps_coords_plain(T, src, size, grid_span=span)
+    torch.cuda.synchronize()
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    require(err == 0, f"tps_coords: max|d| {err} vs plain (0 expected)")
+    B2, P = im.shape[0], src.shape[1]
+    npix = B2 * size[0] * size[1]
+    nbytes = (T.numel() + src.numel() + size[0] + size[1]) * 4 + 2 * npix * 4
+    # per pixel: a0 + a1 x + a2 y (4 per coordinate), and per point
+    # 2 differences, 2 squares and a sum, +eps, log, a product, and a
+    # multiply-add per coordinate (12)
+    ops = npix * (8 + 12 * P)
+    bms, by = bound(nbytes, ops)
+    ms = time_ms(lambda: tps_coords_cuda.tps_coords(T, src, size,
+                                                    grid_span=span), 20)
+    plain_ms = time_ms(lambda: tps_coords_cuda.tps_coords_plain(
+        T, src, size, grid_span=span), 3, 1)
+    return {"name": "tps_coords", "route": "cuda",
+            "source": "stabstitch2_tpu_torch/csrc/tps_coords.cu",
+            "replaces": "stabstitch2_tpu/ops/pallas_warp.py:31",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None,
+            "library_note": "no single PyTorch call evaluates a TPS spline",
+            "images": B2, "canvas_hw": list(size), "control_points": P,
+            "bytes": nbytes, "ops": ops, "roofline_share": bms / ms}
+
+
+def k4_entry(st, res, clip, launches):
+    """K4 against its plain version in both layouts, at the coordinates K3
+    gives the main path's first chunk; F.grid_sample is the yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from stabstitch2_tpu_torch.ops import patch_gather_cuda, tps_coords_cuda
+    from stabstitch2_tpu_torch.ops.interp import support_mask
+
+    im, T, src, size, span = first_chunk(st, res, clip)
+    B2, H, W, _ = im.shape
+    x, y = tps_coords_cuda.tps_coords_plain(T, src, size, grid_span=span)
+    x, y = x.contiguous(), y.contiguous()
+    live = support_mask(x, y, H, W).reshape(B2, *size)
+    errs, dead = {}, {}
+    for planes in (False, True):
+        got = patch_gather_cuda.bilinear_sample_patch_u8_cuda(
+            im, x, y, size, planes=planes)
+        ref = patch_gather_cuda.patch_gather_plain(im, x, y, size, planes)
+        torch.cuda.synchronize()
+        require(not bool(got[-1]), "patch_gather: viol is False")
+        g = torch.stack(got[:3], -1) if planes else got[0]
+        r = torch.stack(ref[:3], -1) if planes else ref[0]
+        key = "planes" if planes else "interleaved"
+        errs[key] = float((g - r).abs().max())
+        dead[key] = int((g[~live] != 0).any(-1).sum())
+        require(errs[key] <= GATHER_ATOL,
+                f"patch_gather {key}: max|d| {errs[key]} vs plain")
+        require(dead[key] == 0, f"patch_gather {key}: {dead[key]} nonzero "
+                                "dead px")
+    npix = B2 * size[0] * size[1]
+    n_live = int(live.sum())
+    nbytes = im.numel() + 2 * npix * 4 + 3 * npix * 4
+    # per pixel: corners, weights and support 27; per live pixel:
+    # 3 channels x (4 multiplies + 3 adds)
+    ops = npix * 27 + n_live * 21
+    bms, by = bound(nbytes, ops)
+    ms = time_ms(lambda: patch_gather_cuda.bilinear_sample_patch_u8_cuda(
+        im, x, y, size), 50)
+    plain_ms = time_ms(lambda: patch_gather_cuda.patch_gather_plain(
+        im, x, y, size), 5, 1)
+    img = im.permute(0, 3, 1, 2).to(torch.float32).contiguous()
+    grid = torch.stack([x, y], -1).reshape(B2, *size, 2)
+    library_ms = time_ms(lambda: F.grid_sample(
+        img, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=False), 50)
+    return {"name": "patch_gather", "route": "cuda",
+            "source": "stabstitch2_tpu_torch/csrc/patch_gather.cu",
+            "replaces": "stabstitch2_tpu/ops/pallas_gather.py:72",
+            "launches": launches, "max_abs_err": max(errs.values()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms,
+            "library_note": "F.grid_sample(bilinear, zeros, "
+                            "align_corners=False) on the float32 NCHW image "
+                            "at the same coordinates: the same four-corner "
+                            "gather and combine per pixel, with another "
+                            "border rule and float input",
+            "max_abs_err_by_layout": errs, "dead_nonzero": dead,
+            "atol": GATHER_ATOL, "images": B2, "source_hw": [int(H), int(W)],
+            "canvas_hw": list(size), "live_frac": n_live / npix,
+            "bytes": nbytes, "ops": ops, "roofline_share": bms / ms}
+
+
+def plain_fused_yuv420(st, res, clip):
+    """Route A's yuv420 frames from the plain path on the card: the plain
+    K2 version, AVERAGE fusion, clip, ``bgr_to_yuv420``, packed I420."""
+    import numpy as np
+    import torch
+
+    from stabstitch2_tpu_torch.ops.blend import average_fusion
+    from stabstitch2_tpu_torch.ops.fused_warp_cuda import fused_warp_planes_plain
+    from stabstitch2_tpu_torch.ops.yuv import bgr_to_yuv420, pack_i420
+    from stabstitch2_tpu_torch.pipeline.compositor import (compute_canvas,
+                                                           scale_meshes,
+                                                           warp_inputs)
+
+    v1, v2 = clip
+    dev, n = st.device, st.chunk
+    H, W = v1.shape[1:3]
+    m1 = scale_meshes(res.smooth_mesh1, H, W, st.model_h, st.model_w)
+    m2 = scale_meshes(res.smooth_mesh2, H, W, st.model_h, st.model_w)
+    c = compute_canvas(m1, m2, st.config.canvas_bucket)
+    span = (np.float32(c.out_h), np.float32(c.out_w))
+    oh, ow = c.out_h // 2 * 2, c.out_w // 2 * 2
+    offset = torch.tensor([c.x_min, c.y_min], dtype=torch.float32, device=dev)
+    out = []
+    for s in range(0, v1.shape[0], n):
+        im, T, src = warp_inputs(torch.from_numpy(v1[s:s + n]).to(dev),
+                                 torch.from_numpy(v2[s:s + n]).to(dev),
+                                 m1[s:s + n], m2[s:s + n], offset, span)
+        pb, pg, pr, _, _ = fused_warp_planes_plain(im, T, src,
+                                                   (c.pad_h, c.pad_w), span)
+        w = torch.stack([pb, pg, pr], -1)
+        b = w.shape[0] // 2
+        fused = torch.clamp(average_fusion(w[:b], w[b:]), 0.0, 255.0)
+        y, u, v = bgr_to_yuv420(fused)
+        out.append(pack_i420(y[:, :oh, :ow], u[:, :oh // 2, :ow // 2],
+                             v[:, :oh // 2, :ow // 2]).cpu().numpy())
+    return np.concatenate(out, 0)
+
+
+def phase_routes(device, clip, st, res):
+    """Route B at full width, counted, then the routes on the stitch
+    phase's smooth meshes (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from stabstitch2_tpu_torch.config import StitchConfig
+    from stabstitch2_tpu_torch.ops import (corr_cuda, fused_warp_cuda,
+                                           patch_gather_cuda, tps_coords_cuda)
+    from stabstitch2_tpu_torch.ops.yuv import bgr_u8_to_yuv420, pack_i420
+    from stabstitch2_tpu_torch.pipeline.compositor import composite_video
+    from stabstitch2_tpu_torch.pipeline.stitcher import init_stitcher
+
+    v1, v2 = clip
+    cfg_b = StitchConfig(fused_warp=False, download_format="yuv420")
+    sb = init_stitcher(rng_seed=0, config=cfg_b, device=device)
+    sb.stitch_arrays(v1, None, v2, None)          # warm-up
+    torch.cuda.synchronize()
+    counters = (corr_cuda, fused_warp_cuda, tps_coords_cuda,
+                patch_gather_cuda)
+    for c in counters:
+        c.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    rb = sb.stitch_arrays(v1, None, v2, None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"cost_volume_r5": corr_cuda.LAUNCHES[5],
+                "cost_volume_r3": corr_cuda.LAUNCHES[3],
+                "fused_warp": fused_warp_cuda.LAUNCHES["fused_warp"],
+                "tps_coords": tps_coords_cuda.LAUNCHES["tps_coords"],
+                "patch_gather": patch_gather_cuda.LAUNCHES["patch_gather"]}
+    require(launches["tps_coords"] > 0 and launches["patch_gather"] > 0
+            and launches["fused_warp"] == 0,
+            f"route B launched K3 and K4 and not K2: {launches}")
+    f, cb = rb.frames, rb.canvas
+    require(rb.frame_format == "i420" and f.dtype == np.uint8
+            and f.shape == (T_FRAMES, cb.out_h * 3 // 2, cb.out_w)
+            and cb.out_h % 2 == 0 and cb.out_w % 2 == 0,
+            f"route B yuv420 frames {f.shape} {f.dtype} {rb.frame_format}")
+    require(f.max() > 0, "route B frames not all 0")
+    mesh_err = max(float((getattr(rb, k) - getattr(res, k)).abs().max())
+                   for k in ("smooth_mesh1", "smooth_mesh2"))
+    require(mesh_err <= MESH_ATOL_PX, f"route B run's meshes {mesh_err} px")
+
+    size = (st.model_h, st.model_w)
+
+    def comp(v1_, v2_, m1, m2, **cfg):
+        return composite_video(v1_, v2_, m1, m2, config=StitchConfig(**cfg),
+                               chunk=st.chunk, model_size=size)[0]
+
+    m1, m2 = res.smooth_mesh1, res.smooth_mesh2
+    b_vs_a, bgr_b = {}, {}
+    for mode in ("AVERAGE", "LINEAR"):
+        a = (res.frames if mode == st.config.fusion_mode
+             else comp(v1, v2, m1, m2, fusion_mode=mode))
+        bgr_b[mode] = comp(v1, v2, m1, m2, fusion_mode=mode, fused_warp=False)
+        d = b_vs_a[mode] = frame_diff(bgr_b[mode], a)
+        require(d["max"] == 0, f"route B vs route A {mode} bgr: {d}")
+    yuv_b = comp(v1, v2, m1, m2, fused_warp=False, download_format="yuv420")
+    oh, ow = yuv_b.shape[1] * 2 // 3, yuv_b.shape[2]
+    conv = bgr_u8_to_yuv420(torch.from_numpy(
+        np.ascontiguousarray(bgr_b["AVERAGE"][:, :oh, :ow])).to(device))
+    want_b = pack_i420(*conv).cpu().numpy()
+    yuv_b_diff = frame_diff(yuv_b, want_b)
+    require(yuv_b_diff["max"] == 0,
+            f"route B yuv420 vs bgr_u8_to_yuv420(route B bgr): {yuv_b_diff}")
+    yuv_a = comp(v1, v2, m1, m2, download_format="yuv420")
+    want_a = plain_fused_yuv420(st, res, clip)
+    require(yuv_a.shape == want_a.shape, f"route A yuv420 {yuv_a.shape}")
+    yuv_a_diff = frame_diff(yuv_a, want_a)
+    require(yuv_a_diff["max"] == 0,
+            f"route A yuv420 vs bgr_to_yuv420(plain fusion): {yuv_a_diff}")
+
+    n = CPU_FRAMES
+    card_vs_cpu = {}
+    for name, cfg in (("FAST", dict(warp_mode="FAST")),
+                      ("coord_stride_4", dict(coord_stride=4))):
+        card = comp(v1[:n], v2[:n], m1[:n], m2[:n], **cfg)
+        cpu = comp(v1[:n], v2[:n], m1[:n].cpu(), m2[:n].cpu(), **cfg)
+        d = card_vs_cpu[name] = frame_diff(card, cpu)
+        require(d["frac_diff"] <= FRAC_DIFF
+                and d["frac_diff_gt1"] <= FRAC_DIFF_GT1,
+                f"{name} composite, card vs cpu on the same meshes: {d}")
+    return {"phase": "routes", "route": "B (fused_warp=False), yuv420",
+            "frames": int(f.shape[0]),
+            "canvas_hw": [cb.out_h, cb.out_w],
+            "padded_canvas_hw": [cb.pad_h, cb.pad_w],
+            "wall_s": wall, "fps": T_FRAMES / wall, "phase_ms": rb.ms,
+            "launches": launches, "smooth_mesh_max_abs_px_vs_stitch": mesh_err,
+            "route_b_vs_a_bgr": b_vs_a, "route_b_yuv420_vs_chain": yuv_b_diff,
+            "route_a_yuv420_vs_plain": yuv_a_diff,
+            "card_vs_cpu_frames": card_vs_cpu, "cpu_frames": n,
+            "frac_diff_max": FRAC_DIFF, "frac_diff_gt1_max": FRAC_DIFF_GT1}
 
 
 def phase_cpu_compare(st_cuda, clip):
@@ -368,6 +625,11 @@ def main() -> int:
     emit(info)
 
     t = time.perf_counter()
+    routes = phase_routes(device, clip, st, res)
+    routes["seconds"] = time.perf_counter() - t
+    emit(routes)
+
+    t = time.perf_counter()
     h8, w8 = 360 // 8, 480 // 8
     kernels = [
         k1_entry([k1_case(5, (st.chunk, h8, w8, 128),
@@ -375,6 +637,8 @@ def main() -> int:
                   k1_case(3, (2 * st.chunk, h8, w8, 128),
                           launches["cost_volume_r3"], device)]),
         k2_entry(st, res, clip, launches["fused_warp"]),
+        k3_entry(st, res, clip, routes["launches"]["tps_coords"]),
+        k4_entry(st, res, clip, routes["launches"]["patch_gather"]),
     ]
     emit({"phase": "kernels", "kernels": [k["name"] for k in kernels],
           "detail": kernels, "seconds": time.perf_counter() - t})

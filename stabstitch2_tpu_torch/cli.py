@@ -1,7 +1,8 @@
 """Command-line entry point of the port: ``stitch``.
 
     python -m stabstitch2_tpu_torch.cli stitch --test_path <dataset> \
-        --output_path <dir> [--fusion_mode AVERAGE|LINEAR] [--device cuda]
+        --output_path <dir> [--fusion_mode AVERAGE|LINEAR] \
+        [--warp_mode NORMAL|FAST] [--download_format yuv420|bgr] [--device cuda]
 
 Each <dataset>/<video>/video1 + video2 directory of jpgs becomes
 <output_path>/<video>.mp4. The models carry random float32 weights drawn
@@ -27,7 +28,10 @@ def cmd_stitch(args) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     stitcher = init_stitcher(rng_seed=args.seed,
-                             config=StitchConfig(fusion_mode=args.fusion_mode),
+                             config=StitchConfig(
+                                 fusion_mode=args.fusion_mode,
+                                 warp_mode=args.warp_mode,
+                                 download_format=args.download_format),
                              chunk=args.chunk, device=args.device)
     videos = list_videos(args.test_path)
     if not videos:
@@ -64,6 +68,12 @@ def main(argv=None) -> int:
     p.add_argument("--output_path", required=True)
     p.add_argument("--fusion_mode", choices=["AVERAGE", "LINEAR"],
                    default="AVERAGE")
+    p.add_argument("--warp_mode", choices=["NORMAL", "FAST"], default="NORMAL")
+    p.add_argument("--download_format", choices=["bgr", "yuv420"],
+                   default="yuv420",
+                   help="composite transfer format: yuv420 (default; "
+                        "encoder-native I420, half the device->host bytes) "
+                        "or bgr")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
     p.add_argument("--seed", type=int, default=0,

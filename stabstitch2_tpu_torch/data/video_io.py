@@ -2,7 +2,10 @@
 
 A video is a directory with ``video1/*.jpg`` and ``video2/*.jpg``; frames
 are used at native resolution (composite) and resized to the model input,
-normalized to [-1, 1]. Decoding is cv2 only; output is mp4 from uint8 BGR.
+normalized to [-1, 1]. Decoding is cv2 only; output is mp4 from uint8 BGR
+or from packed I420 (the yuv420 download). cv2 is imported by the
+functions that decode or encode, so the compositor can use
+:func:`pack_i420_host` where cv2 is not installed.
 """
 
 from __future__ import annotations
@@ -11,7 +14,6 @@ import glob
 import os
 from typing import List, Tuple
 
-import cv2
 import numpy as np
 
 from stabstitch2_tpu_torch.config import MODEL_H, MODEL_W
@@ -31,6 +33,8 @@ def load_view(video_dir: str, view: str,
               model_size: Tuple[int, int] = (MODEL_H, MODEL_W)
               ) -> Tuple[np.ndarray, np.ndarray]:
     """(hires uint8 [T, H, W, 3], model-size float32 [T, mh, mw, 3] in [-1, 1])."""
+    import cv2
+
     paths = list_frames(video_dir, view)
     if not paths:
         raise FileNotFoundError(f"no frames in {video_dir}/{view}")
@@ -54,16 +58,48 @@ def load_video_pair(video_dir: str,
     return hi1[:T], lo1[:T], hi2[:T], lo2[:T]
 
 
-def write_video(path: str, frames: np.ndarray, fps: int = 30) -> None:
-    """Encode uint8 BGR frames [T, H, W, 3] as mp4 (fourcc mp4v)."""
+def pack_i420_host(y: np.ndarray, u: np.ndarray, v: np.ndarray
+                   ) -> np.ndarray:
+    """(Y [.., H, W], U, V [.., H/2, W/2]) -> packed I420 [.., H*3//2, W].
+
+    The planes are contiguous, one after the other (cv2's I420 layout);
+    batched ([T, H, W]) or single-frame ([H, W]).
+    """
+    y, u, v = np.asarray(y), np.asarray(u), np.asarray(v)
+    lead = y.shape[:-2]
+    H, W = y.shape[-2:]
+    flat = np.concatenate([y.reshape(*lead, -1), u.reshape(*lead, -1),
+                           v.reshape(*lead, -1)], axis=-1)
+    return flat.reshape(*lead, H * 3 // 2, W)
+
+
+def write_video(path: str, frames: np.ndarray, fps: int = 30,
+                frame_format: str = "bgr") -> None:
+    """Encode frames as mp4 (fourcc mp4v).
+
+    frame_format 'bgr': uint8 BGR [T, H, W, 3]. 'i420': packed YUV 4:2:0
+    [T, H*3//2, W] uint8, each frame expanded to BGR by cv2 right before
+    the encoder (which converts back to 4:2:0).
+    """
+    import cv2
+
+    if frame_format == "i420":
+        T, H15, W = frames.shape
+        H = H15 * 2 // 3
+    elif frame_format == "bgr":
+        T, H, W, _ = frames.shape
+    else:
+        raise ValueError(f"unknown frame_format {frame_format!r}")
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    T, H, W, _ = frames.shape
     writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (W, H))
     if not writer.isOpened():
         raise IOError(f"cv2.VideoWriter could not open {path!r} "
                       f"(mp4v {W}x{H}; does the path end in .mp4?)")
     try:
         for t in range(T):
-            writer.write(np.clip(frames[t], 0, 255).astype(np.uint8))
+            if frame_format == "i420":
+                writer.write(cv2.cvtColor(frames[t], cv2.COLOR_YUV2BGR_I420))
+            else:
+                writer.write(np.clip(frames[t], 0, 255).astype(np.uint8))
     finally:
         writer.release()

@@ -30,7 +30,7 @@ from stabstitch2_tpu_torch.ops.interp import (
     bilinear_mask,
     support_mask,
 )
-from stabstitch2_tpu_torch.ops.tps import grid_1d, tps_sample_coords
+from stabstitch2_tpu_torch.ops.tps import grid_1d, tps_coords_plain
 
 # launches of the kernel (plain integer under one key)
 LAUNCHES: collections.Counter = collections.Counter()
@@ -41,13 +41,13 @@ def fused_warp_planes_plain(im: torch.Tensor, T: torch.Tensor,
                             grid_span=None):
     """The kernel's function in plain PyTorch.
 
-    ``tps_sample_coords`` + the packed-patch sample as planes +
+    ``tps_coords_plain`` + the packed-patch sample as planes +
     ``bilinear_mask`` + the factored support mask (dead pixels exact 0).
     Returns (pb, pg, pr, mask, viol) with planes [B, oh, ow] float32.
     """
     B, H, W, _ = im.shape
     oh, ow = out_size
-    x_s, y_s = tps_sample_coords(T, source, out_size, grid_span=grid_span)
+    x_s, y_s = tps_coords_plain(T, source, out_size, grid_span=grid_span)
     wa, wb, wc, wd, y0i, x0i = _patch_weights_idx(x_s, y_s, H, W)
     live = support_mask(x_s, y_s, H, W)
     zero = torch.zeros((), dtype=x_s.dtype, device=x_s.device)

@@ -1,9 +1,12 @@
 """Bilinear resampling with the reference's arithmetic (port of ``ops/interp.py``).
 
-Normalized coordinates map to pixels as ``x_px = (x + 1) * W / 2``; corner
-indices are clamped to the image and the weights are taken from the
-clamped corners against the unclamped position, so samples far outside
-the image sum to zero (the NORMAL warp mode's border semantics).
+NORMAL warp mode: normalized coordinates map to pixels as
+``x_px = (x + 1) * W / 2``; corner indices are clamped to the image and
+the weights are taken from the clamped corners against the unclamped
+position, so samples far outside the image sum to zero.
+
+FAST warp mode (:func:`grid_sample_align_corners`): ``F.grid_sample``
+with ``align_corners=True`` and zero padding, ``x_px = (x + 1) * (W-1) / 2``.
 
 Images are NHWC; coordinates are flat [B, N] sample positions.
 """
@@ -111,7 +114,12 @@ def _patch_corners_u8(im: torch.Tensor, y0i: torch.Tensor, x0i: torch.Tensor):
 
 
 def _combine_planes(ga, gb, gc, gd, wa, wb, wc, wd):
-    """Per-channel weighted combine of packed corners, reference order."""
+    """Per-channel weighted combine of packed corners, reference order.
+
+    Returns the (B, G, R) planes in the weights' shape: the planar combine
+    itself, and the interleaved one once stacked on a last axis (the same
+    float32 operations either way).
+    """
     def ch(shift):
         ua = ((ga >> shift) & 0xFF).to(wa.dtype)
         ub = ((gb >> shift) & 0xFF).to(wa.dtype)
@@ -143,3 +151,56 @@ def bilinear_mask(im_h: int, im_w: int, x: torch.Tensor,
     xf, yf, _, _, x0c, x1c, y0c, y1c = _corners(x, y, im_h, im_w)
     return ((x1c - xf) * (y1c - yf) + (x1c - xf) * (yf - y0c)
             + (xf - x0c) * (y1c - yf) + (xf - x0c) * (yf - y0c))
+
+
+def grid_sample_mask_align_corners(im_h: int, im_w: int, x: torch.Tensor,
+                                   y: torch.Tensor) -> torch.Tensor:
+    """FAST-mode coverage mask: the sum of the in-image corners' weights."""
+    xf = (x + 1.0) * ((im_w - 1) / 2.0)
+    yf = (y + 1.0) * ((im_h - 1) / 2.0)
+    x0 = torch.floor(xf)
+    y0 = torch.floor(yf)
+    x1 = x0 + 1.0
+    y1 = y0 + 1.0
+    zero = torch.zeros((), dtype=xf.dtype, device=xf.device)
+    total = torch.zeros_like(xf)
+    for ix, iy, w in ((x0, y0, (x1 - xf) * (y1 - yf)),
+                      (x0, y1, (x1 - xf) * (yf - y0)),
+                      (x1, y0, (xf - x0) * (y1 - yf)),
+                      (x1, y1, (xf - x0) * (yf - y0))):
+        valid = (ix >= 0) & (ix <= im_w - 1) & (iy >= 0) & (iy <= im_h - 1)
+        total = total + torch.where(valid, w, zero)
+    return total
+
+
+def grid_sample_align_corners(im: torch.Tensor, x: torch.Tensor,
+                              y: torch.Tensor) -> torch.Tensor:
+    """``F.grid_sample(align_corners=True, padding_mode='zeros')`` semantics.
+
+    im: [B, H, W, C] float; x, y: [B, N] normalized. Returns [B, N, C];
+    NaN coordinates give 0.
+    """
+    B, H, W, C = im.shape
+    xf = (x + 1.0) * ((W - 1) / 2.0)
+    yf = (y + 1.0) * ((H - 1) / 2.0)
+    x0 = torch.floor(xf)
+    y0 = torch.floor(yf)
+    x1 = x0 + 1.0
+    y1 = y0 + 1.0
+    # weights from the unclamped corners; out-of-range corners add 0
+    wa = (x1 - xf) * (y1 - yf)
+    wb = (x1 - xf) * (yf - y0)
+    wc = (xf - x0) * (y1 - yf)
+    wd = (xf - x0) * (yf - y0)
+    flat = im.reshape(B, H * W, C)
+    zero = torch.zeros((), dtype=xf.dtype, device=xf.device)
+
+    def corner(ix, iy, w):
+        valid = (ix >= 0) & (ix <= W - 1) & (iy >= 0) & (iy <= H - 1)
+        ixc = _index(torch.clamp(ix, 0, W - 1))
+        iyc = _index(torch.clamp(iy, 0, H - 1))
+        vals = _gather_pixels(flat, iyc * W + ixc)
+        return torch.where(valid, w, zero)[..., None] * vals
+
+    return (corner(x0, y0, wa) + corner(x0, y1, wb)
+            + corner(x1, y0, wc) + corner(x1, y1, wd))

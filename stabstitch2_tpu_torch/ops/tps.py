@@ -4,11 +4,12 @@ The (P+3)x(P+3) system is solved in float32, as the JAX package does
 (PARITY.md "Known deviations": the evaluated coordinates stay within
 ~0.015 px of the reference's float64 solve at 360x480).
 
-:func:`tps_sample_coords` evaluates the spline point by point in one fixed
+:func:`spline_eval` evaluates the spline point by point in one fixed
 order, ``a0 + a1*x + a2*y`` then ``+ w_p * U(d_p^2)`` for p = 0..P-1. That
-is the order of the fused composite-warp kernel (``csrc/fused_warp.cu``),
-so the kernel and this plain version give the same float32 coordinates,
-and no [B, P+3, H*W] basis is ever built.
+is the order of the fused composite-warp kernel (``csrc/fused_warp.cu``)
+and of the TPS-coordinate kernel (``csrc/tps_coords.cu``), so the kernels
+and this plain version give the same float32 coordinates, and no
+[B, P+3, H*W] basis is ever built.
 """
 
 from __future__ import annotations
@@ -121,11 +122,12 @@ def spline_eval(T: torch.Tensor, source: torch.Tensor, gx: torch.Tensor,
     return acc_x, acc_y
 
 
-def tps_sample_coords(T: torch.Tensor, source: torch.Tensor,
-                      out_size: Tuple[int, int],
-                      grid_span: Optional[Tuple[float, float]] = None,
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Spline over the normalized output grid at stride 1: (x_s, y_s) [B, H*W].
+def tps_coords_plain(T: torch.Tensor, source: torch.Tensor,
+                     out_size: Tuple[int, int],
+                     grid_span: Optional[Tuple[float, float]] = None,
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The spline over the normalized output grid at stride 1, in plain
+    PyTorch: (x_s, y_s) [B, H*W].
 
     ``grid_span`` gives the true canvas extent when ``out_size`` is a
     padded superset.
@@ -136,6 +138,67 @@ def tps_sample_coords(T: torch.Tensor, source: torch.Tensor,
     gx = grid_1d(out_w, span_w, **kw)[None, :].expand(out_h, out_w).reshape(1, -1)
     gy = grid_1d(out_h, span_h, **kw)[:, None].expand(out_h, out_w).reshape(1, -1)
     return spline_eval(T, source, gx, gy)
+
+
+def _lerp_upsample_1d(coarse: torch.Tensor, n: int, stride: int,
+                      dim: int) -> torch.Tensor:
+    """Linear interpolation from samples at 0, s, 2s, ... to 0..n-1."""
+    j = torch.arange(n, device=coarse.device)
+    i0 = torch.div(j, stride, rounding_mode="floor")
+    frac = (j % stride).to(coarse.dtype) / stride
+    a = torch.index_select(coarse, dim, i0)
+    b = torch.index_select(coarse, dim, i0 + 1)
+    shape = [1] * coarse.dim()
+    shape[dim] = n
+    frac = frac.reshape(shape)
+    return a * (1.0 - frac) + b * frac
+
+
+def _strided_coords(T: torch.Tensor, source: torch.Tensor,
+                    out_size: Tuple[int, int], grid_span, stride: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The spline on every ``stride``-th pixel, interpolated linearly to
+    full resolution (the JAX package's coarse-lattice path)."""
+    out_h, out_w = out_size
+    span_h, span_w = grid_span or out_size
+    B = source.shape[0]
+    hc = (out_h - 1) // stride + 2
+    wc = (out_w - 1) // stride + 2
+    kw = dict(dtype=T.dtype, device=T.device)
+    # the lattice step in float32, as the JAX package computes it
+    step_x = float(np.float32(_span_step(span_w)) * np.float32(stride))
+    step_y = float(np.float32(_span_step(span_h)) * np.float32(stride))
+    x1 = -1.0 + step_x * torch.arange(wc, **kw)
+    y1 = -1.0 + step_y * torch.arange(hc, **kw)
+    gx = x1[None, :].expand(hc, wc).reshape(1, -1).expand(B, -1)
+    gy = y1[:, None].expand(hc, wc).reshape(1, -1).expand(B, -1)
+    rows = _eval_grid_rows(gx, gy, source)
+    field = torch.einsum("bij,bjn->bin", T, rows).reshape(B, 2, hc, wc)
+    field = _lerp_upsample_1d(field, out_h, stride, 2)
+    field = _lerp_upsample_1d(field, out_w, stride, 3)
+    flat = field.reshape(B, 2, out_h * out_w)
+    # contiguous, as K3 returns them: K4 takes only contiguous coordinates
+    return flat[:, 0].contiguous(), flat[:, 1].contiguous()
+
+
+def tps_sample_coords(T: torch.Tensor, source: torch.Tensor,
+                      out_size: Tuple[int, int],
+                      grid_span: Optional[Tuple[float, float]] = None,
+                      coord_stride: int = 1,
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Spline over the normalized output grid: (x_s, y_s) [B, H*W].
+
+    At stride 1 the TPS-coordinate kernel K3 (``ops/tps_coords_cuda.py``)
+    evaluates it on a CUDA tensor and :func:`tps_coords_plain` on a CPU
+    tensor, with the same float32 result. ``coord_stride`` > 1 evaluates
+    every s-th pixel of a coarse lattice (one matrix product, float32; the
+    caller keeps TF32 off) and interpolates linearly.
+    """
+    if coord_stride > 1:
+        return _strided_coords(T, source, out_size, grid_span, coord_stride)
+    from stabstitch2_tpu_torch.ops.tps_coords_cuda import tps_coords
+
+    return tps_coords(T, source, out_size, grid_span=grid_span)
 
 
 def tps_transform_points(points: torch.Tensor, source: torch.Tensor,

@@ -30,14 +30,15 @@ from stabstitch2_tpu_torch.pipeline.transport import (
 
 @dataclasses.dataclass
 class StitchResult:
-    frames: np.ndarray            # [T, out_h, out_w, 3] uint8 BGR
-    canvas: Canvas
+    frames: np.ndarray            # uint8 BGR [T, out_h, out_w, 3], or
+    canvas: Canvas                # packed I420 [T, out_h*3//2, out_w]
     smooth_mesh1: torch.Tensor    # [T, GH+1, GW+1, 2] model-resolution meshes
     smooth_mesh2: torch.Tensor
     ori_mesh1: torch.Tensor
     ori_mesh2: torch.Tensor
     ms: Dict[str, float] = dataclasses.field(default_factory=dict)
     fps: Dict[str, float] = dataclasses.field(default_factory=dict)
+    frame_format: str = "bgr"     # 'bgr' or 'i420' (download_format yuv420)
 
 
 def resolve_device(device) -> torch.device:
@@ -131,7 +132,9 @@ class VideoStitcher:
                             smooth_mesh2=smooth["smooth_mesh2"],
                             ori_mesh1=smooth["ori_mesh1"],
                             ori_mesh2=smooth["ori_mesh2"], ms=ms,
-                            fps={"total": T / max(total, 1e-9)})
+                            fps={"total": T / max(total, 1e-9)},
+                            frame_format=("i420" if self.config.download_format
+                                          == "yuv420" else "bgr"))
 
     def stitch_video_dir(self, video_dir: str,
                          output_path: Optional[str] = None) -> StitchResult:
@@ -144,7 +147,8 @@ class VideoStitcher:
         result = self.stitch_arrays(hi1, lo1, hi2, lo2)
         if output_path:
             t0 = time.perf_counter()
-            write_video(output_path, result.frames)
+            write_video(output_path, result.frames,
+                        frame_format=result.frame_format)
             result.fps["encode"] = len(result.frames) / max(
                 time.perf_counter() - t0, 1e-9)
         return result

@@ -1,4 +1,4 @@
-"""Build and load the package's CUDA kernels (``csrc/*.cu``).
+"""Build and load the package's CUDA kernels (``csrc/*.cu``, ``csrc/*.cuh``).
 
 One ``nvcc`` command compiles every source into a plain-C shared library,
 which is loaded with ``ctypes``::
@@ -7,9 +7,10 @@ which is loaded with ``ctypes``::
          -Xcompiler -fPIC -Xptxas -v -o <build>/libstabstitch_kernels.so csrc/*.cu
 
 The library goes to ``stabstitch2_tpu_torch/_build/<hash>/``, where the
-hash covers the sources and the flags, so an edited source is rebuilt on
-its next use. The build writes to a temporary name and renames it into
-place: no lock files. Nothing here runs at import time.
+hash covers the sources, the headers they include and the flags, so an
+edited source or header is rebuilt on its next use. The build writes to a
+temporary name and renames it into place: no lock files. Nothing here
+runs at import time.
 """
 
 from __future__ import annotations
@@ -41,6 +42,12 @@ _SIGNATURES = {
     # im, T, source, gx, gy, out, B, H, W, oh, ow, P, device, stream
     "stabstitch_fused_warp": [_VP, _VP, _VP, _VP, _VP, _VP,
                               _I, _I, _I, _I, _I, _I, _I, _VP],
+    # T, source, gx, gy, xs, ys, B, oh, ow, P, device, stream
+    "stabstitch_tps_coords": [_VP, _VP, _VP, _VP, _VP, _VP,
+                              _I, _I, _I, _I, _I, _VP],
+    # im, xs, ys, out, B, H, W, N, planes, device, stream
+    "stabstitch_patch_gather": [_VP, _VP, _VP, _VP,
+                                _I, _I, _I, _I, _I, _I, _VP],
 }
 
 
@@ -59,7 +66,14 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def sources() -> List[str]:
+    """The translation units nvcc compiles."""
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def hashed_files() -> List[str]:
+    """Everything the library is built from: the sources and the headers
+    they include."""
+    return sorted(sources() + glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
 def nvcc_path() -> str:
@@ -72,9 +86,10 @@ def nvcc_path() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _digest(srcs: List[str]) -> str:
+def source_digest() -> str:
+    """Hash of the flags and of every file in :func:`hashed_files`."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in hashed_files():
         h.update(os.path.basename(s).encode())
         with open(s, "rb") as f:
             h.update(f.read())
@@ -112,7 +127,7 @@ def build() -> BuildInfo:
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
-    out_dir = os.path.join(BUILD_DIR, _digest(srcs))
+    out_dir = os.path.join(BUILD_DIR, source_digest())
     path = os.path.join(out_dir, LIB_NAME)
     tmp = f"{path}.tmp{os.getpid()}"
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *srcs]

@@ -7,15 +7,17 @@ nor the JAX package, so it also runs on a machine without them:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
 Tolerances: K1 1e-5 (the kernel sums the channels in another order);
-K2 exact, since kernel and plain version do the same float32 operations
-in the same order.
+K2, K3 and K4 exact, since kernel and plain version do the same float32
+operations in the same order.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from stabstitch2_tpu_torch.ops import corr_cuda, fused_warp_cuda
+from stabstitch2_tpu_torch.config import StitchConfig
+from stabstitch2_tpu_torch.ops import (corr_cuda, fused_warp_cuda,
+                                       patch_gather_cuda, tps_coords_cuda)
 from stabstitch2_tpu_torch.ops.mesh import mesh_points, normalize_mesh, rigid_mesh
 from stabstitch2_tpu_torch.ops.tps import tps_params
 from stabstitch2_tpu_torch.pipeline.stitcher import init_stitcher
@@ -110,3 +112,91 @@ def test_stitch_on_card_launches_both_kernels(cuda_device):
     assert corr_cuda.LAUNCHES[5] == 4 and corr_cuda.LAUNCHES[3] == 2
     assert fused_warp_cuda.LAUNCHES["fused_warp"] == 2
     assert res.frames.shape[0] == 8 and res.frames.max() > 10
+
+
+@pytest.mark.parametrize("out_size,span", [((144, 256), (140, 250)),
+                                           ((97, 131), (90, 120)),
+                                           ((448, 608), (430, 600)),
+                                           ((1, 3), None)])
+def test_tps_coords_kernel(cuda_device, out_size, span):
+    _, T, norm = _warp_case(cuda_device, span=span or out_size)
+    n = tps_coords_cuda.LAUNCHES["tps_coords"]
+    got = tps_coords_cuda.tps_coords(T, norm, out_size, grid_span=span)
+    torch.cuda.synchronize()
+    assert tps_coords_cuda.LAUNCHES["tps_coords"] == n + 1
+    ref = tps_coords_cuda.tps_coords_plain(T, norm, out_size, grid_span=span)
+    for g, r in zip(got, ref):
+        assert g.shape == (3, out_size[0] * out_size[1])
+        torch.testing.assert_close(g, r.expand_as(g), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("planes", [False, True])
+@pytest.mark.parametrize("shift,out_size", [(10.0, (144, 256)),
+                                            (10.0, (97, 131)),
+                                            (900.0, (64, 64))])
+def test_patch_gather_kernel(cuda_device, planes, shift, out_size):
+    span = (140, 250)
+    im, T, norm = _warp_case(cuda_device, mesh_shift=shift, span=span)
+    x, y = tps_coords_cuda.tps_coords_plain(T, norm, out_size, grid_span=span)
+    x[:, ::97] = float("nan")     # NaN coordinates are dead: exact 0
+    n = patch_gather_cuda.LAUNCHES["patch_gather"]
+    got = patch_gather_cuda.bilinear_sample_patch_u8_cuda(im, x, y, out_size,
+                                                          planes=planes)
+    torch.cuda.synchronize()
+    assert patch_gather_cuda.LAUNCHES["patch_gather"] == n + 1
+    ref = patch_gather_cuda.patch_gather_plain(im, x, y, out_size, planes)
+    for g, r in zip(got[:-1], ref[:-1]):
+        torch.testing.assert_close(g, r, atol=0, rtol=0)
+    assert not bool(got[-1])
+    out = torch.stack(got[:3], -1) if planes else got[0]
+    assert not bool(out.reshape(3, -1, 3)[:, ::97].any())
+    if shift > 100:
+        assert not bool(out.any())
+
+
+def test_stitch_route_b_launches_k3_and_k4_not_k2(cuda_device):
+    from synthetic import make_two_view_clip
+
+    v1, v2 = make_two_view_clip(num_frames=8, height=128, width=160,
+                                overlap=0.6, shake_px=2.0, seed=5)
+    st = init_stitcher(0, StitchConfig(fused_warp=False), model_h=128,
+                       model_w=160, chunk=4, device=cuda_device)
+    for c in (fused_warp_cuda, tps_coords_cuda, patch_gather_cuda):
+        c.LAUNCHES.clear()
+    res = st.stitch_arrays(v1, None, v2, None)
+    assert tps_coords_cuda.LAUNCHES["tps_coords"] == 2
+    assert patch_gather_cuda.LAUNCHES["patch_gather"] == 2
+    assert fused_warp_cuda.LAUNCHES["fused_warp"] == 0
+    assert res.frames.shape[0] == 8 and res.frames.max() > 10
+
+
+@pytest.mark.parametrize("cfg", [dict(coord_stride=4),
+                                 dict(warp_mode="FAST"),
+                                 dict(fused_warp=True, coord_stride=4,
+                                      download_format="yuv420")],
+                         ids=["stride4", "fast", "planar-yuv420"])
+def test_composite_routes_card_vs_cpu(cuda_device, cfg):
+    """The routes beside the fused default on the card against the CPU on
+    the same meshes: <= 1% of values differ, <= 1e-4 by more than a level
+    (float32 TPS solves round differently on the two devices)."""
+    from stabstitch2_tpu_torch.pipeline.compositor import composite_video
+
+    rng = np.random.default_rng(5)
+    T, H, W = 3, 96, 144
+    i1, i2 = (rng.integers(0, 255, (T, H, W, 3), dtype=np.uint8)
+              for _ in range(2))
+    base = np.stack(np.meshgrid(np.linspace(0.0, W, 9),
+                                np.linspace(0.0, H, 7)), -1)[None]
+    m1, m2 = (torch.from_numpy((base + rng.normal(0, 2, (T, 7, 9, 2)) + s)
+                               .astype(np.float32)) for s in (0.0, 25.0))
+    config = StitchConfig(canvas_bucket=32, **cfg)
+    patch_gather_cuda.LAUNCHES.clear()
+    card, _ = composite_video(i1, i2, m1.to(cuda_device), m2.to(cuda_device),
+                              config=config, chunk=2, model_size=(H, W))
+    if cfg.get("warp_mode") != "FAST":
+        assert patch_gather_cuda.LAUNCHES["patch_gather"] == 2
+    cpu, _ = composite_video(i1, i2, m1, m2, config=config, chunk=2,
+                             model_size=(H, W))
+    assert card.shape == cpu.shape and card.max() > 10
+    d = np.abs(card.astype(np.int16) - cpu.astype(np.int16))
+    assert (d > 0).mean() <= 1e-2 and (d > 1).mean() <= 1e-4, d.max()

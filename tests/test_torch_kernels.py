@@ -1,4 +1,4 @@
-"""The port's two kernel modules against the JAX package's Pallas kernels.
+"""The port's kernel modules against the JAX package's Pallas kernels.
 
 On the CPU each wrapper runs its plain version, which is held against the
 Pallas kernel in interpret mode on the same seeded numpy inputs:
@@ -7,7 +7,12 @@ Pallas kernel in interpret mode on the same seeded numpy inputs:
   (atol/rtol 1e-5, as TestPallasCostVolume);
 - K2 ``ops/fused_warp_cuda.py`` vs ``ops/pallas_fused.py:fused_warp_planes``
   (<= 1 uint8 LSB, < 5e-3 of pixels differing, exact zeros at dead
-  pixels on both sides, as TestFusedWarp).
+  pixels on both sides, as TestFusedWarp);
+- K3 ``ops/tps_coords_cuda.py`` vs ``ops/pallas_warp.py:tps_coords_fused``
+  and the jnp ``tps_sample_coords`` (atol 2e-4, as TestPallasTPSKernel);
+- K4 ``ops/patch_gather_cuda.py`` vs
+  ``ops/pallas_gather.py:bilinear_sample_patch_u8_pallas`` in its ``flat``
+  and ``planes`` layouts (atol 1e-2, as TestPallasPatchGather).
 
 The hand-written kernels themselves run only on the card: their tests are
 in ``tests/test_torch_cuda.py``.
@@ -24,8 +29,14 @@ from stabstitch2_tpu.ops.mesh import normalize_mesh as j_normalize_mesh
 from stabstitch2_tpu.ops.mesh import rigid_mesh as j_rigid_mesh
 from stabstitch2_tpu.ops.pallas_corr import cost_volume_fused
 from stabstitch2_tpu.ops.pallas_fused import fused_warp_planes as j_fused
+from stabstitch2_tpu.ops.pallas_gather import bilinear_sample_patch_u8_pallas
+from stabstitch2_tpu.ops.pallas_warp import tps_coords_fused
 from stabstitch2_tpu.ops.tps import tps_params as j_tps_params
-from stabstitch2_tpu_torch.ops import corr_cuda, fused_warp_cuda
+from stabstitch2_tpu.ops.tps import tps_sample_coords as j_tps_sample_coords
+from stabstitch2_tpu_torch.ops import (corr_cuda, fused_warp_cuda,
+                                       patch_gather_cuda, tps_coords_cuda)
+from stabstitch2_tpu_torch.ops.tps import tps_sample_coords
+from stabstitch2_tpu_torch.utils import cuda_build
 
 
 def t(x):
@@ -162,3 +173,155 @@ class TestFusedWarpPlain:
                                               (8, 8))
         with pytest.raises(ValueError):
             fused_warp_cuda.fused_warp_planes(t(im), t(T)[:2], t(norm), (8, 8))
+
+
+def _tps_case(seed=0, B=2):
+    """TestPallasTPSKernel's spline: a 7x9 lattice on [-1, 1]^2, jittered."""
+    rng = np.random.default_rng(seed)
+    xs, ys = np.linspace(-1, 1, 9), np.linspace(-1, 1, 7)
+    mesh = np.stack(np.meshgrid(xs, ys), -1).reshape(-1, 2)
+    src = (mesh[None] + rng.normal(0, 0.06, (B, 63, 2))).astype(np.float32)
+    tgt = np.tile(mesh[None], (B, 1, 1)).astype(np.float32)
+    T = np.asarray(j_tps_params(jnp.asarray(src), jnp.asarray(tgt)))
+    return T, src
+
+
+class TestTPSCoordsPlain:
+    # (36, 48) and (29, 48): the second has a row count that is not a
+    # multiple of the TPU kernel's 8-row tile; the last normalizes a
+    # padded canvas by a smaller true extent
+    @pytest.mark.parametrize("out_size,span", [((36, 48), None),
+                                               ((29, 48), None),
+                                               ((29, 48), (25, 40))])
+    def test_matches_pallas_interpret_and_jnp(self, out_size, span):
+        T, src = _tps_case()
+        x, y = tps_coords_cuda.tps_coords(t(T), t(src), out_size,
+                                          grid_span=span)
+        assert x.shape == y.shape == (2, out_size[0] * out_size[1])
+        for ref in (tps_coords_fused(jnp.asarray(T), jnp.asarray(src),
+                                     out_size, interpret=True, grid_span=span),
+                    j_tps_sample_coords(jnp.asarray(T), jnp.asarray(src),
+                                        out_size, use_pallas=False,
+                                        grid_span=span)):
+            np.testing.assert_allclose(x.numpy(), np.asarray(ref[0]), atol=2e-4)
+            np.testing.assert_allclose(y.numpy(), np.asarray(ref[1]), atol=2e-4)
+
+    def test_cpu_wrapper_is_plain_and_launches_nothing(self):
+        T, src = _tps_case(seed=1, B=3)
+        before = dict(tps_coords_cuda.LAUNCHES)
+        got = tps_coords_cuda.tps_coords(t(T), t(src), (21, 17))
+        via = tps_sample_coords(t(T), t(src), (21, 17))
+        want = tps_coords_cuda.tps_coords_plain(t(T), t(src), (21, 17))
+        assert dict(tps_coords_cuda.LAUNCHES) == before
+        for a, b, c in zip(got, via, want):
+            np.testing.assert_array_equal(a.numpy(), c.numpy())
+            np.testing.assert_array_equal(b.numpy(), c.numpy())
+
+    def test_rejects_bad_inputs(self):
+        T, src = _tps_case(seed=2)
+        with pytest.raises(TypeError):
+            tps_coords_cuda.tps_coords(t(T).double(), t(src).double(), (8, 8))
+        with pytest.raises(ValueError):
+            tps_coords_cuda.tps_coords(t(T)[:1], t(src), (8, 8))
+        with pytest.raises(ValueError):
+            tps_coords_cuda.tps_coords(t(T)[:, :, :-1], t(src), (8, 8))
+
+
+class TestPatchGatherPlain:
+    """TestPallasPatchGather's setup (tests/test_geometry.py): 2 images of
+    40x48 sampled on a smooth 48x64 raster, in range and shifted off every
+    image edge."""
+
+    B, H, W = 2, 40, 48
+    OH, OW = 48, 64
+    SHIFTS = [(0.0, 0.0), (-25.0, 0.0), (30.0, 0.0), (0.0, -22.0),
+              (0.0, 28.0)]
+
+    def _coords(self, shift_x=0.0, shift_y=0.0, seed=0):
+        rng = np.random.default_rng(seed)
+        yy = np.arange(self.OH, dtype=np.float32)[None, :, None]
+        xx = np.arange(self.OW, dtype=np.float32)[None, None, :]
+        ph = rng.uniform(0, 6.28, (self.B, 1, 1)).astype(np.float32)
+        xs = (xx * (self.W / self.OW) * 0.93
+              + 2.0 * np.cos(yy / self.OH * 5 + ph) + shift_x)
+        ys = (yy * (self.H / self.OH) * 0.93
+              + 3.0 * np.sin(xx / self.OW * 4 + ph) + shift_y)
+        xn = np.broadcast_to(xs * 2.0 / self.W - 1.0, (self.B, self.OH, self.OW))
+        yn = np.broadcast_to(ys * 2.0 / self.H - 1.0, (self.B, self.OH, self.OW))
+        return (np.array(xn.reshape(self.B, -1), np.float32),
+                np.array(yn.reshape(self.B, -1), np.float32))
+
+    def _im(self, seed=3):
+        rng = np.random.default_rng(seed)
+        return rng.integers(0, 256, (self.B, self.H, self.W, 3), dtype=np.uint8)
+
+    @pytest.mark.parametrize("shift", SHIFTS)
+    @pytest.mark.parametrize("layout", ["flat", "planes"])
+    def test_matches_pallas_interpret(self, shift, layout):
+        im, (x, y) = self._im(), self._coords(*shift)
+        planes = layout == "planes"
+        ref = bilinear_sample_patch_u8_pallas(
+            jnp.asarray(im), jnp.asarray(x), jnp.asarray(y), (self.OH, self.OW),
+            interpret=True, combine_layout=layout)
+        got = patch_gather_cuda.bilinear_sample_patch_u8_cuda(
+            t(im), t(x), t(y), (self.OH, self.OW), planes=planes)
+        assert not bool(ref[-1]) and not bool(got[-1])
+        if planes:
+            ref = np.stack([np.asarray(p) for p in ref[:3]], -1)
+            got = torch.stack(got[:3], -1)
+        else:
+            ref, got = np.asarray(ref[0]), got[0]
+        assert got.shape == (self.B, self.OH, self.OW, 3)
+        np.testing.assert_allclose(got.numpy(), ref, atol=1e-2)
+
+    @pytest.mark.parametrize("planes", [False, True])
+    def test_nan_coords_are_exact_zero(self, planes):
+        im, (x, y) = self._im(), self._coords()
+        x[:, ::7] = np.nan
+        y[:, 3::11] = np.nan
+        out = patch_gather_cuda.bilinear_sample_patch_u8_cuda(
+            t(im), t(x), t(y), (self.OH, self.OW), planes=planes)
+        assert not bool(out[-1])
+        got = (torch.stack(out[:3], -1) if planes else out[0]).reshape(
+            self.B, -1, 3).numpy()
+        nan = np.isnan(x) | np.isnan(y)
+        np.testing.assert_array_equal(got[nan], 0.0)
+        assert np.isfinite(got).all() and got[~nan].max() > 100
+
+    def test_cpu_wrapper_is_plain_and_launches_nothing(self):
+        im, (x, y) = self._im(seed=4), self._coords(5.0, -3.0, seed=1)
+        before = dict(patch_gather_cuda.LAUNCHES)
+        for planes in (False, True):
+            a = patch_gather_cuda.bilinear_sample_patch_u8_cuda(
+                t(im), t(x), t(y), (self.OH, self.OW), planes=planes)
+            b = patch_gather_cuda.patch_gather_plain(
+                t(im), t(x), t(y), (self.OH, self.OW), planes=planes)
+            for p, q in zip(a[:-1], b[:-1]):
+                np.testing.assert_array_equal(p.numpy(), q.numpy())
+        assert dict(patch_gather_cuda.LAUNCHES) == before
+
+    def test_rejects_bad_inputs(self):
+        im, (x, y) = self._im(), self._coords()
+        size = (self.OH, self.OW)
+        with pytest.raises(ValueError):
+            patch_gather_cuda.bilinear_sample_patch_u8_cuda(
+                t(im).float(), t(x), t(y), size)
+        with pytest.raises(ValueError):
+            patch_gather_cuda.bilinear_sample_patch_u8_cuda(
+                t(im), t(x), t(y), (self.OH, self.OW - 1))
+        with pytest.raises(TypeError):
+            patch_gather_cuda.bilinear_sample_patch_u8_cuda(
+                t(im), t(x).double(), t(y).double(), size)
+
+
+def test_header_edit_changes_build_hash(tmp_path, monkeypatch):
+    """The build hash covers csrc/*.cuh, so an edited header rebuilds."""
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    header = tmp_path / "common.cuh"
+    header.write_text("// v1\n")
+    monkeypatch.setattr(cuda_build, "CSRC", str(tmp_path))
+    assert cuda_build.sources() == [str(tmp_path / "k.cu")]
+    before = cuda_build.source_digest()
+    assert cuda_build.source_digest() == before
+    header.write_text("// v2\n")
+    assert cuda_build.source_digest() != before

@@ -140,8 +140,10 @@ class TestEntryPoints:
             cli.main(["stitch", "--test_path", ".", "--output_path", "."])
 
     def test_unported_options_raise(self):
-        for kw in (dict(warp_mode="FAST"), dict(download_format="yuv420"),
-                   dict(fusion_mode="MEDIAN")):
+        # FAST and yuv420 are ported: they construct
+        StitchConfig(warp_mode="FAST", download_format="yuv420")
+        for kw in (dict(fusion_mode="MEDIAN"), dict(download_format="nv12"),
+                   dict(warp_mode="CUBIC"), dict(coord_stride=0)):
             with pytest.raises(ValueError):
                 StitchConfig(**kw)
         st = init_stitcher(0, model_h=MH, model_w=MW, device="cpu")
