@@ -7,9 +7,14 @@ Phases, each printing one JSON line with its seconds:
 
 1. ``device``: the card's name and count, and its name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives.
-2. ``build``: the one ``nvcc`` call that builds ``csrc/*.cu`` into a
-   plain-C library (bound with ``ctypes``), its wall seconds and ptxas's
-   registers / shared memory / spills per kernel.
+2. ``build``: the ``nvcc`` calls that build ``csrc/*.cu`` into a plain-C
+   library (bound with ``ctypes``; one compile per source, all started
+   together, then the link), their wall seconds and ptxas's registers /
+   shared memory / spills per kernel. Then the float32 operations of the
+   accurate ``logf`` and of K2's bit-equal core path of it
+   (``warp_common.cuh:log_core``), counted in the SASS (``cuobjdump
+   -sass``) of probe kernels that do nothing else: the bounds of K2 and
+   K3 count the latter.
 3. ``stitch``: the main path through the entry points a user calls,
    ``init_stitcher(rng_seed=0, device="cuda")`` (random float32 weights
    from the seed) and ``stitch_arrays`` on a synthetic two-view clip of 16
@@ -27,15 +32,25 @@ Phases, each printing one JSON line with its seconds:
    B's yuv420 against the conversion of its bgr frames and route A's
    yuv420 against the conversion of the plain path's float fusion (both
    exact); FAST mode and ``coord_stride=4`` on the card against the CPU.
-5. ``kernels``: each kernel against its plain PyTorch version on the card,
+5. ``resize``: the main path at a frame size other than the model's, 16
+   frames of 480x640 through ``stitch_arrays(lo=None)``, so the model
+   input is resized on the card (``pipeline/stitcher.py:model_input``),
+   with the launch counts set to 0 just before and read just after (K1
+   and K2 > 0); the card's model input against the CPU port's
+   (<= RESIZE_ATOL).
+6. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the shapes the main path gives it, with CUDA-event times, the bound
    (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the H100
-   SXM's published peaks) and the share of it reached. ``cost_volume``
+   SXM's published peaks; an FMA counts two operations) and the share of
+   it reached. ``cost_volume``
    runs at both search ranges the path gives it (r=5 and r=3); its entry
    carries each as a case and, at the top, their launch-weighted mean.
    The warp kernels run on the first chunk of the stitch phase (16 images
    onto the padded canvas); K3 and K4 carry the routes phase's launches.
-6. ``cpu_compare``: the same port on the CPU over the first 8 frames,
+   K2 must equal its plain version bit for bit (planes and mask), and
+   its log (``log_core``) must equal ``logf`` on every float32 from 1e-6
+   to FLT_MAX.
+7. ``cpu_compare``: the same port on the CPU over the first 8 frames,
    against the card: smooth meshes, and composited frames on the same
    meshes with AVERAGE and with LINEAR fusion (LINEAR reads K2's coverage
    masks).
@@ -49,8 +64,10 @@ missing.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -69,6 +86,23 @@ CV_ATOL = 1e-5
 MASK_ATOL = 1e-4
 GATHER_ATOL = 1e-4
 MESH_ATOL_PX = 0.05
+# the model input resized on the card against the CPU: the same filter,
+# summed in another order (values in [-1, 1])
+RESIZE_ATOL = 1e-4
+# kernels that do nothing but a log, for counting its float32 operations
+# in SASS: the accurate logf and K2's bit-equal core path of it
+LOG_PROBES = """
+#include "warp_common.cuh"
+extern "C" __global__ void logf_probe(const float* x, float* y) {
+  y[threadIdx.x] = logf(x[threadIdx.x]);
+}
+extern "C" __global__ void log_core_probe(const float* x, float* y) {
+  y[threadIdx.x] = stabstitch::log_core(x[threadIdx.x]);
+}
+"""
+# SASS opcodes that run on the float32 units; FFMA counts two operations
+FP32_OPCODES = ("FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSETP", "FSET",
+                "MUFU", "I2F", "I2FP", "FCHK", "FRND")
 FRAC_DIFF = 1e-2
 FRAC_DIFF_GT1 = 1e-4
 
@@ -120,6 +154,39 @@ def frame_diff(a, b) -> dict:
     d = np.abs(a.astype(np.int16) - b.astype(np.int16))
     return {"max": int(d.max()), "frac_diff": float((d > 0).mean()),
             "frac_diff_gt1": float((d > 1).mean())}
+
+
+def log_sass_ops():
+    """Each probe's float32 operations as its SASS shows them:
+    {probe: (operations, {opcode: count})}, an FFMA counting two. A
+    probe's only other instructions load, index and store."""
+    from stabstitch2_tpu_torch.utils import cuda_build
+
+    nvcc = cuda_build.nvcc_path()
+    d = os.path.join(cuda_build.BUILD_DIR, "log_probes")
+    os.makedirs(d, exist_ok=True)
+    src, cubin = os.path.join(d, "probes.cu"), os.path.join(d, "probes.cubin")
+    with open(src, "w") as f:
+        f.write(LOG_PROBES)
+    subprocess.run([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-O3", "-I", cuda_build.CSRC, "-o", cubin, src],
+                   check=True, capture_output=True)
+    sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"),
+                           "-sass", cubin], check=True, capture_output=True,
+                          text=True).stdout
+    out = {}
+    for body in sass.split("Function : ")[1:]:
+        name = body.split()[0]
+        hist = collections.Counter(
+            m.group(1) for m in re.finditer(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)",
+                body))
+        fp32 = {k: v for k, v in hist.items() if k in FP32_OPCODES}
+        require(fp32.get("FFMA", 0) > 0, f"{name} SASS has no FFMA: {hist}")
+        out[name] = (sum(fp32.values()) + fp32.get("FFMA", 0), fp32)
+    require(set(out) == {"logf_probe", "log_core_probe"},
+            f"log probes in the SASS: {sorted(out)}")
+    return out
 
 
 def phase_stitch(device, clip):
@@ -240,7 +307,20 @@ def first_chunk(st, res, clip):
     return im, T, src, (c.pad_h, c.pad_w), span
 
 
-def k2_entry(st, res, clip, launches):
+def spline_ops(images, size, P, log_ops):
+    """Float32 operations of the TPS spline at every pixel of `images`
+    canvases of `size`: (X - sx_p)^2 once per column and point and
+    (Y - sy_p)^2 once per row and point (2 each; X depends only on the
+    column, Y only on the row), then per pixel the affine part (4 per
+    coordinate) and per pixel and point the sum of the squares, +1e-6,
+    the log (log_ops), a product and a multiply and an add per
+    coordinate (7 + log_ops)."""
+    oh, ow = size
+    return images * (2 * P * (oh + ow)
+                     + oh * ow * (8 + P * (7 + log_ops)))
+
+
+def k2_entry(st, res, clip, launches, log_ops):
     """K2 against its plain version on the first chunk of the main path."""
     import torch
 
@@ -248,6 +328,11 @@ def k2_entry(st, res, clip, launches):
     from stabstitch2_tpu_torch.ops.interp import support_mask
     from stabstitch2_tpu_torch.ops.tps import tps_coords_plain
 
+    t0 = time.perf_counter()
+    log_bad, log_first = fused_warp_cuda.log_core_check(st.device)
+    log_s = time.perf_counter() - t0
+    require(log_bad == 0, f"log_core differs from logf on {log_bad} float32s "
+                          f"from 1e-6 to FLT_MAX, first bits {log_first}")
     im, T, src, size, span = first_chunk(st, res, clip)
     H, W = im.shape[1:3]
     got = fused_warp_cuda.fused_warp_planes(im, T, src, size, grid_span=span)
@@ -267,15 +352,18 @@ def k2_entry(st, res, clip, launches):
     require(lsb_max <= 1, f"fused_warp: {lsb_max} uint8 levels vs plain")
     require(dead_nonzero == 0, f"fused_warp: {dead_nonzero} nonzero dead px")
     require(mask_err <= MASK_ATOL, f"fused_warp: mask max|d| {mask_err}")
+    require(err == 0, f"fused_warp: max|d| {err} vs plain (bit-equal "
+                      "expected: the same float32 operations in the same "
+                      "order)")
     require(not bool(got[4]), "fused_warp: viol is False")
     B2, P = im.shape[0], src.shape[1]
     npix = B2 * size[0] * size[1]
     n_live = int(live.sum())
     nbytes = (im.numel() + (T.numel() + src.numel() + size[0] + size[1]) * 4
               + B2 * 4 * size[0] * size[1] * 4)
-    # per pixel: spline 8 + 12 per point, corners/weights/mask/support 30;
+    # the spline (spline_ops), corners/weights/mask/support 30 per pixel;
     # per live pixel: 3 channels x (4 multiplies + 3 adds)
-    ops = npix * (38 + 12 * P) + n_live * 21
+    ops = spline_ops(B2, size, P, log_ops) + npix * 30 + n_live * 21
     bms, by = bound(nbytes, ops)
     ms = time_ms(lambda: fused_warp_cuda.fused_warp_planes(
         im, T, src, size, grid_span=span), 20)
@@ -294,11 +382,18 @@ def k2_entry(st, res, clip, launches):
             "canvas_hw": list(size), "control_points": P,
             "u8_lsb_diff_count": lsb, "dead_nonzero": dead_nonzero,
             "mask_max_abs_err": mask_err, "mask_atol": MASK_ATOL,
-            "live_frac": n_live / npix, "bytes": nbytes, "ops": ops,
+            "live_frac": n_live / npix, "log_ops": log_ops,
+            "log_core_check": {
+                "float32s": fused_warp_cuda.LOG_CHECK_HI
+                - fused_warp_cuda.LOG_CHECK_LO + 1,
+                "from_bits": hex(fused_warp_cuda.LOG_CHECK_LO),
+                "to_bits": hex(fused_warp_cuda.LOG_CHECK_HI),
+                "mismatches": log_bad, "seconds": log_s},
+            "bytes": nbytes, "ops": ops,
             "roofline_share": bms / ms}
 
 
-def k3_entry(st, res, clip, launches):
+def k3_entry(st, res, clip, launches, log_ops):
     """K3 against its plain version on the first chunk of the main path:
     exactly equal (the same float32 operations in the same order)."""
     import torch
@@ -314,10 +409,7 @@ def k3_entry(st, res, clip, launches):
     B2, P = im.shape[0], src.shape[1]
     npix = B2 * size[0] * size[1]
     nbytes = (T.numel() + src.numel() + size[0] + size[1]) * 4 + 2 * npix * 4
-    # per pixel: a0 + a1 x + a2 y (4 per coordinate), and per point
-    # 2 differences, 2 squares and a sum, +eps, log, a product, and a
-    # multiply-add per coordinate (12)
-    ops = npix * (8 + 12 * P)
+    ops = spline_ops(B2, size, P, log_ops)
     bms, by = bound(nbytes, ops)
     ms = time_ms(lambda: tps_coords_cuda.tps_coords(T, src, size,
                                                     grid_span=span), 20)
@@ -331,7 +423,8 @@ def k3_entry(st, res, clip, launches):
             "library_ms": None,
             "library_note": "no single PyTorch call evaluates a TPS spline",
             "images": B2, "canvas_hw": list(size), "control_points": P,
-            "bytes": nbytes, "ops": ops, "roofline_share": bms / ms}
+            "log_ops": log_ops, "bytes": nbytes, "ops": ops,
+            "roofline_share": bms / ms}
 
 
 def k4_entry(st, res, clip, launches):
@@ -530,6 +623,51 @@ def phase_routes(device, clip, st, res):
             "frac_diff_max": FRAC_DIFF, "frac_diff_gt1_max": FRAC_DIFF_GT1}
 
 
+def phase_resize(device, st):
+    """lo=None at 480x640 for the 360x480 model: the main path with the
+    model input resized on the card, counted, and that input against the
+    CPU port's."""
+    import numpy as np
+    import torch
+
+    from stabstitch2_tpu_torch.ops import corr_cuda, fused_warp_cuda
+    from stabstitch2_tpu_torch.pipeline.stitcher import model_input
+    from synthetic import make_two_view_clip
+
+    v1, v2 = make_two_view_clip(num_frames=T_FRAMES, height=480, width=640,
+                                overlap=0.5, shake_px=4.0, seed=1)
+    torch.cuda.synchronize()
+    corr_cuda.LAUNCHES.clear()
+    fused_warp_cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = st.stitch_arrays(v1, None, v2, None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"cost_volume_r5": corr_cuda.LAUNCHES[5],
+                "cost_volume_r3": corr_cuda.LAUNCHES[3],
+                "fused_warp": fused_warp_cuda.LAUNCHES["fused_warp"]}
+    require(all(n > 0 for n in launches.values()),
+            f"every kernel launched on the lo=None path: {launches}")
+    f = res.frames
+    require(f.shape[0] == T_FRAMES and f.dtype == np.uint8 and f.max() > 0,
+            f"lo=None frames {f.shape} {f.dtype}")
+    for k in ("smooth_mesh1", "smooth_mesh2"):
+        require(bool(torch.isfinite(getattr(res, k)).all()), f"{k} finite")
+    size = (st.model_h, st.model_w)
+    card = model_input(torch.from_numpy(v1).to(device), *size).cpu()
+    cpu = model_input(torch.from_numpy(v1), *size)
+    err = float((card - cpu).abs().max())
+    require(card.shape == (T_FRAMES, *size, 3) and err <= RESIZE_ATOL,
+            f"model input on the card vs the CPU: {tuple(card.shape)}, "
+            f"max|d| {err}")
+    return {"phase": "resize", "frames": T_FRAMES, "frame_hw": [480, 640],
+            "model_hw": list(size), "canvas_hw": [res.canvas.out_h,
+                                                  res.canvas.out_w],
+            "wall_s": wall, "fps": T_FRAMES / wall, "phase_ms": res.ms,
+            "launches": launches, "model_input_max_abs_err_vs_cpu": err,
+            "atol": RESIZE_ATOL}
+
+
 def phase_cpu_compare(st_cuda, clip):
     """The port on the CPU over the first frames against the card.
 
@@ -613,9 +751,16 @@ def main() -> int:
     t = time.perf_counter()
     info = cuda_build.build()
     cuda_build.load_kernels()
-    emit({"phase": "build", "command": " ".join(info.command),
+    logs = log_sass_ops()
+    # the bounds count the cheapest log proven bit-equal (kernels phase)
+    log_ops = logs["log_core_probe"][0]
+    emit({"phase": "build",
+          "commands": [" ".join(c) for c in info.commands],
           "nvcc_seconds": info.seconds, "built": info.built,
-          "ptxas": info.ptxas, "seconds": time.perf_counter() - t})
+          "ptxas": info.ptxas,
+          "log_fp32_ops": {k: v[0] for k, v in logs.items()},
+          "log_fp32_opcodes": {k: v[1] for k, v in logs.items()},
+          "seconds": time.perf_counter() - t})
 
     t = time.perf_counter()
     clip = make_two_view_clip(num_frames=T_FRAMES, height=360, width=480,
@@ -630,14 +775,19 @@ def main() -> int:
     emit(routes)
 
     t = time.perf_counter()
+    resize = phase_resize(device, st)
+    resize["seconds"] = time.perf_counter() - t
+    emit(resize)
+
+    t = time.perf_counter()
     h8, w8 = 360 // 8, 480 // 8
     kernels = [
         k1_entry([k1_case(5, (st.chunk, h8, w8, 128),
                           launches["cost_volume_r5"], device),
                   k1_case(3, (2 * st.chunk, h8, w8, 128),
                           launches["cost_volume_r3"], device)]),
-        k2_entry(st, res, clip, launches["fused_warp"]),
-        k3_entry(st, res, clip, routes["launches"]["tps_coords"]),
+        k2_entry(st, res, clip, launches["fused_warp"], log_ops),
+        k3_entry(st, res, clip, routes["launches"]["tps_coords"], log_ops),
         k4_entry(st, res, clip, routes["launches"]["patch_gather"]),
     ]
     emit({"phase": "kernels", "kernels": [k["name"] for k in kernels],

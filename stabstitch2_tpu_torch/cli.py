@@ -5,8 +5,10 @@
         [--warp_mode NORMAL|FAST] [--download_format yuv420|bgr] [--device cuda]
 
 Each <dataset>/<video>/video1 + video2 directory of jpgs becomes
-<output_path>/<video>.mp4. The models carry random float32 weights drawn
-from ``--seed``; loading trained checkpoints is not ported yet.
+<output_path>/<video>.mp4. The frames go to the device as uint8 and are
+resized to the model input there (``pipeline/stitcher.py:model_input``),
+as the JAX CLI does. The models carry random float32 weights drawn from
+``--seed``; loading trained checkpoints is not ported yet.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ def cmd_stitch(args) -> int:
         t0 = time.perf_counter()
         try:
             result = stitcher.stitch_video_dir(vd, out)
-        except (ValueError, OSError, NotImplementedError) as e:
+        except (ValueError, OSError) as e:
             print(f"{name}: stitch failed: {e}", file=sys.stderr)
             failed += 1
             continue

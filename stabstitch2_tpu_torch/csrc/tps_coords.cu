@@ -8,10 +8,15 @@
 // without the [P+3, H*W] radial basis the matrix-product form streams
 // through memory. Out: x_s, y_s, each [B, oh*ow] float32.
 //
-// Bound on the H100: operations. A pixel costs 63 logs and 8 + 12 * 63
-// float32 operations against 8 bytes written: on the main path's
-// 16 x 448 x 608 canvas that is ~3.3 GFLOP, ~50 us at 67 TFLOP/s, against
-// ~35 MB of output, ~10 us at 3.35 TB/s. The per-point loop is the work.
+// Bound on the H100: operations. Per pixel and control point the spline
+// needs the sum of two squares (each square once per column or row and
+// point), +1e-6, a log, a product and a multiply and an add per
+// coordinate: 7 float32 operations plus the log's own, 25 for the
+// bit-equal core path of logf that K2 runs (warp_common.cuh:log_core;
+// the full logf this kernel calls has 32), by chip_smoke.py's count of
+// their SASS. On the main path's 16 x 448 x 608 canvas that is ~8.8
+// GFLOP, ~0.13 ms at 67 TFLOP/s, against ~35 MB of output, ~10 us at
+// 3.35 TB/s. The per-point loop, and in it the log, is the work.
 //
 // Design: one thread per canvas pixel, T[b] and src[b] in shared memory
 // (every thread of a block reads the same point, a broadcast), the spline

@@ -19,6 +19,9 @@ from stabstitch2_tpu_torch.ops.cost_volume import cost_volume
 
 # launches of the kernel, keyed by search range (plain integers)
 LAUNCHES: collections.Counter = collections.Counter()
+# the kernel keeps its 4 (2r+1) accumulators in registers, so each search
+# range is a template instance (csrc/cost_volume.cu): 0..7
+MAX_SEARCH_RANGE = 7
 
 
 def cost_volume_plain(x1: torch.Tensor, x2: torch.Tensor,
@@ -45,6 +48,9 @@ def _launch(x1: torch.Tensor, x2: torch.Tensor,
 
     if not (x1.is_contiguous() and x2.is_contiguous()):
         raise ValueError("cost_volume_cuda needs contiguous NHWC inputs")
+    if search_range > MAX_SEARCH_RANGE:
+        raise ValueError(f"cost_volume_cuda: search_range {search_range} > "
+                         f"{MAX_SEARCH_RANGE}, the largest the kernel has")
     B, H, W, C = x1.shape
     k = 2 * search_range + 1
     out = torch.empty(B, H, W, k * k, dtype=x1.dtype, device=x1.device)

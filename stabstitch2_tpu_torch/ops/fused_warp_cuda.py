@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import struct
 from typing import Optional, Tuple
 
 import torch
@@ -117,3 +118,33 @@ def fused_warp_planes(im: torch.Tensor, T: torch.Tensor,
         LAUNCHES["fused_warp"] += 1
     viol = torch.zeros((), dtype=torch.bool, device=im.device)
     return out[:, 0], out[:, 1], out[:, 2], out[:, 3], viol
+
+
+# log_core's domain in the kernel: every float32 from 1e-6 to FLT_MAX
+LOG_CHECK_LO = struct.unpack("<I", struct.pack("<f", 1e-6))[0]
+LOG_CHECK_HI = 0x7F7FFFFF
+
+
+def log_core_check(device) -> Tuple[int, Optional[int]]:
+    """The kernel's branch-free log (``warp_common.cuh:log_core``) against
+    the accurate ``logf``, on the card, over every float32 with bits from
+    LOG_CHECK_LO to LOG_CHECK_HI: (inputs whose results differ in any bit,
+    the smallest such bits or None)."""
+    from stabstitch2_tpu_torch.utils.cuda_build import check_launch, load_kernels
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"log_core_check runs on the card, not {device}")
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    first = torch.full((1,), -1, dtype=torch.int32, device=device)
+    lib = load_kernels()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.stabstitch_log_core_check(
+            LOG_CHECK_LO, LOG_CHECK_HI - LOG_CHECK_LO + 1,
+            ctypes.c_void_p(bad.data_ptr()), ctypes.c_void_p(first.data_ptr()),
+            device.index if device.index is not None else 0,
+            ctypes.c_void_p(stream))
+    check_launch("log_core_check_kernel", err)
+    n = int(bad.item())
+    return n, (int(first.item()) & 0xFFFFFFFF) if n else None

@@ -21,11 +21,13 @@ one gather, K4, and it cannot overflow, so there is no repair leg):
 - B-planar: route B when ``out_format='yuv420'`` reaches
   :func:`composite_chunk` itself; K4 writes three planes and the fusion
   and the 4:2:0 conversion stay planar. :func:`composite_begin` chains
-  yuv420 (uint8 BGR, then ``bgr_u8_to_yuv420``) whenever ``fused_warp``
-  is off, so it reaches this branch only when the fused route was asked
-  for and does not apply (``coord_stride`` > 1), as in the JAX package.
+  NORMAL-mode yuv420 (uint8 BGR, then ``bgr_u8_to_yuv420``) whenever
+  ``fused_warp`` is off, so it reaches this branch only when the fused
+  route was asked for and does not apply (``coord_stride`` > 1), as in the
+  JAX package.
 - FAST: the coordinates as route B, the ``grid_sample``-style sampler and
-  mask in plain PyTorch (the JAX package has no kernel for them either).
+  mask in plain PyTorch (the JAX package has no kernel for them either);
+  yuv420 converts the clipped float fusion, unchained, as in JAX.
 - float input (not uint8): the coordinates as route B, ``bilinear_sample``.
 """
 
@@ -211,8 +213,10 @@ def composite_begin(img1, img2, smooth_mesh1: torch.Tensor,
     if fused is None:
         fused = config.warp_mode == "NORMAL" and config.coord_stride == 1
     out_format = config.download_format
-    # the gather route's yuv420 is chained: uint8 BGR, then the conversion
-    chain_yuv = not fused and out_format == "yuv420"
+    # the NORMAL gather route's yuv420 is chained: uint8 BGR, then the
+    # conversion (JAX chains only there: its auto gather is NORMAL-only)
+    chain_yuv = (not fused and config.warp_mode == "NORMAL"
+                 and out_format == "yuv420")
     device = smooth_mesh1.device
     T, H, W, _ = img1.shape
     m1 = scale_meshes(smooth_mesh1, H, W, *model_size)

@@ -1,10 +1,10 @@
 """End-to-end two-view stitching (port of ``pipeline/stitcher.py``).
 
 Phases: upload -> spatial motion -> temporal motion -> transport +
-sliding-window smoothing -> composite. The model input is the frames
-themselves when they are already at model size, or the model-size frames
-that ``data/video_io.load_video_pair`` returns; the on-device resize and
-the I420 upload paths of the JAX package are not ported yet.
+sliding-window smoothing -> composite. The model input is either given
+(``lo``) or made on the device from the frames by :func:`model_input`
+(antialiased bilinear resize, as ``jax.image.resize``), as in the JAX
+package; its I420 upload path is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from stabstitch2_tpu_torch.config import MODEL_H, MODEL_W, StitchConfig
 from stabstitch2_tpu_torch.models import SmoothNet, SpatialNet, TemporalNet
@@ -39,6 +40,22 @@ class StitchResult:
     ms: Dict[str, float] = dataclasses.field(default_factory=dict)
     fps: Dict[str, float] = dataclasses.field(default_factory=dict)
     frame_format: str = "bgr"     # 'bgr' or 'i420' (download_format yuv420)
+
+
+def model_input(hi: torch.Tensor, mh: int, mw: int) -> torch.Tensor:
+    """Frames [T, H, W, 3] (0..255) -> the model input [T, mh, mw, 3] in
+    [-1, 1]: float32, resized unless already at model size, normalized.
+
+    The resize is bilinear with half-pixel centres and, when it shrinks, a
+    widened triangle filter (``antialias=True``): the function of the JAX
+    package's ``jax.image.resize(x, shape, "bilinear")``.
+    """
+    x = hi.to(torch.float32)
+    if tuple(x.shape[1:3]) != (mh, mw):
+        x = F.interpolate(x.permute(0, 3, 1, 2), size=(mh, mw),
+                          mode="bilinear", align_corners=False,
+                          antialias=True).permute(0, 2, 3, 1).contiguous()
+    return x / 127.5 - 1.0
 
 
 def resolve_device(device) -> torch.device:
@@ -74,23 +91,18 @@ class VideoStitcher:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _model_input(self, hi: torch.Tensor, lo) -> torch.Tensor:
-        if lo is not None:
-            return torch.as_tensor(np.asarray(lo, np.float32)).to(self.device)
-        if tuple(hi.shape[1:3]) != (self.model_h, self.model_w):
-            raise NotImplementedError(
-                f"frames are {tuple(hi.shape[1:3])}, the model input "
-                f"{(self.model_h, self.model_w)}: pass the model-size frames "
-                "(lo) as load_video_pair returns them; the on-device resize "
-                "is not ported yet")
-        return hi.to(torch.float32) / 127.5 - 1.0
-
     @torch.no_grad()
     def stitch_arrays(self, hi1: np.ndarray, lo1: Optional[np.ndarray],
                       hi2: np.ndarray, lo2: Optional[np.ndarray]
                       ) -> StitchResult:
-        """hi*: [T, H, W, 3] uint8 BGR; lo*: [T, mh, mw, 3] float32 in [-1, 1],
-        or None when hi is already at model size."""
+        """hi*: [T, H, W, 3] BGR; lo*: [T, mh, mw, 3] float32 in [-1, 1],
+        or None to make the model input from hi on the device
+        (:func:`model_input`), which is what the CLI does.
+
+        As in the JAX package: without both lo, hi is uploaded as uint8;
+        with both, hi keeps its dtype, so float 0..255 frames take the
+        float composite route.
+        """
         T = hi1.shape[0]
         window = self.config.window
         if T < window:
@@ -105,9 +117,22 @@ class VideoStitcher:
             ms[name] = (now - t) * 1e3
             t = now
 
-        h1 = torch.from_numpy(np.ascontiguousarray(hi1, np.uint8)).to(self.device)
-        h2 = torch.from_numpy(np.ascontiguousarray(hi2, np.uint8)).to(self.device)
-        l1, l2 = self._model_input(h1, lo1), self._model_input(h2, lo2)
+        given = lo1 is not None and lo2 is not None
+
+        def upload(hi):
+            # uint8 unless both lo are given; then float frames stay float
+            # (float32: the JAX package's arrays are float32 at most)
+            keep = given and hi.dtype != np.uint8
+            return torch.from_numpy(np.ascontiguousarray(
+                hi, np.float32 if keep else np.uint8)).to(self.device)
+
+        h1, h2 = upload(hi1), upload(hi2)
+        if given:
+            l1, l2 = (torch.from_numpy(np.ascontiguousarray(lo, np.float32))
+                      .to(self.device) for lo in (lo1, lo2))
+        else:
+            l1, l2 = (model_input(h, self.model_h, self.model_w)
+                      for h in (h1, h2))
         mark("upload")
         smotion1, smotion2 = self._motion.spatial(l1, l2)
         mark("spatial")
@@ -142,9 +167,10 @@ class VideoStitcher:
         from stabstitch2_tpu_torch.data.video_io import (load_video_pair,
                                                          write_video)
 
-        hi1, lo1, hi2, lo2 = load_video_pair(
+        # the model input is made on the device, as the JAX CLI does
+        hi1, _, hi2, _ = load_video_pair(
             video_dir, model_size=(self.model_h, self.model_w))
-        result = self.stitch_arrays(hi1, lo1, hi2, lo2)
+        result = self.stitch_arrays(hi1, None, hi2, None)
         if output_path:
             t0 = time.perf_counter()
             write_video(output_path, result.frames,

@@ -1,10 +1,12 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``, ``csrc/*.cuh``).
 
-One ``nvcc`` command compiles every source into a plain-C shared library,
-which is loaded with ``ctypes``::
+Each source is compiled by its own ``nvcc`` process, all started
+together, and one more ``nvcc`` links the objects into a plain-C shared
+library, which is loaded with ``ctypes``::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o <build>/libstabstitch_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o <build>/<name>.o csrc/<name>.cu
+    nvcc -shared -o <build>/libstabstitch_kernels.so <build>/*.o
 
 The library goes to ``stabstitch2_tpu_torch/_build/<hash>/``, where the
 hash covers the sources, the headers they include and the flags, so an
@@ -31,7 +33,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_NAME = "libstabstitch_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +50,9 @@ _SIGNATURES = {
     # im, xs, ys, out, B, H, W, N, planes, device, stream
     "stabstitch_patch_gather": [_VP, _VP, _VP, _VP,
                                 _I, _I, _I, _I, _I, _I, _VP],
+    # lo bits, count, mismatches (u64), first mismatch (u32), device, stream
+    "stabstitch_log_core_check": [ctypes.c_uint, ctypes.c_uint, _VP, _VP,
+                                  _I, _VP],
 }
 
 
@@ -56,7 +61,7 @@ class BuildInfo:
     """What a build did: the command, its wall seconds and ptxas's report."""
 
     path: str
-    command: List[str]
+    commands: List[List[str]]   # the compiles (run together), then the link
     seconds: float          # 0.0 when the library was already built
     built: bool
     ptxas: Dict[str, Dict[str, int]]   # kernel -> registers, smem, spills
@@ -96,6 +101,20 @@ def source_digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _readable(name: str) -> str:
+    """``_Z18cost_volume_kernelILi5ELb1EEv...`` ->
+    ``cost_volume_kernel<5,1>`` (integer and bool template arguments)."""
+    m = re.match(r"_Z(\d+)(\w+)", name)
+    if not m:
+        return name
+    n = int(m.group(1))
+    base, rest = m.group(2)[:n], m.group(2)[n:]
+    t = re.match(r"I((?:L[a-z]\d+E)+)E", rest)
+    if not t:
+        return base
+    return f"{base}<{','.join(re.findall(r'L[a-z](\d+)E', t.group(1)))}>"
+
+
 def parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
     """Registers, shared memory and spills per kernel from ``-Xptxas -v``."""
     out: Dict[str, Dict[str, int]] = {}
@@ -104,7 +123,7 @@ def parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
         m = re.search(r"(?:Compiling entry function|Function properties for) "
                       r"'?([A-Za-z_]\w*)'?", line)
         if m:
-            current = m.group(1)
+            current = _readable(m.group(1))
             out.setdefault(current, {})
             continue
         if current is None:
@@ -123,30 +142,46 @@ def parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
 
 
 def build() -> BuildInfo:
-    """Compile ``csrc/*.cu`` with one nvcc call unless already built."""
+    """Compile ``csrc/*.cu`` (one ``nvcc`` per source, in parallel) and link
+    them, unless already built."""
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
     out_dir = os.path.join(BUILD_DIR, source_digest())
     path = os.path.join(out_dir, LIB_NAME)
-    tmp = f"{path}.tmp{os.getpid()}"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    tag = f"tmp{os.getpid()}"
+    nvcc = nvcc_path()
+    objs = [os.path.join(out_dir, os.path.basename(s)[:-3] + f".{tag}.o")
+            for s in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for o, s in zip(objs, srcs)]
+    cmds.append([nvcc, "-shared", "-o", f"{path}.{tag}", *objs])
     log_path = os.path.join(out_dir, "ptxas.log")
     if os.path.isfile(path):
         log = open(log_path).read() if os.path.isfile(log_path) else ""
-        return BuildInfo(path, cmd, 0.0, False, parse_ptxas(log))
+        return BuildInfo(path, cmds, 0.0, False, parse_ptxas(log))
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds[:-1]]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(c)}\n{out}")
+    link = subprocess.run(cmds[-1], capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{' '.join(cmds[-1])}\n{link.stdout}"
+                           f"\n{link.stderr}")
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    log = proc.stdout + proc.stderr
+    for o in objs:
+        os.remove(o)
+    log = "".join(outs)
     with open(log_path, "w") as f:
         f.write(log)
-    os.replace(tmp, path)
-    return BuildInfo(path, cmd, seconds, True, parse_ptxas(log))
+    os.replace(f"{path}.{tag}", path)
+    return BuildInfo(path, cmds, seconds, True, parse_ptxas(log))
 
 
 def load_kernels() -> ctypes.CDLL:

@@ -56,6 +56,49 @@ def test_cost_volume_kernel(cuda_device, shape, r):
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("shape,r", [((2, 5, 61, 36), 0),
+                                     ((2, 3, 40, 16), 1),
+                                     ((1, 6, 130, 36), 3),
+                                     ((1, 8, 30, 24), 4),
+                                     ((2, 4, 3, 13), 5),
+                                     ((1, 9, 67, 21), 5),
+                                     ((1, 5, 17, 8), 6),
+                                     ((1, 7, 33, 20), 7),
+                                     ((3, 11, 64, 128), 3)],
+                         ids=["H5-W61-C36-r0", "H3-W40-C16-r1",
+                              "H6-W130-C36-r3", "H8-W30-C24-r4",
+                              "H4-W3-C13-r5", "H9-W67-C21-r5",
+                              "H5-W17-C8-r6", "H7-W33-C20-r7",
+                              "H11-W64-C128-r3"])
+def test_cost_volume_kernel_ragged(cuda_device, shape, r):
+    """Shapes the tiling must cover: H not a multiple of a block's rows (2
+    at r >= 4, 4 below), W not a multiple of the 32-column segment or of a
+    thread's 4 columns, C not a multiple of the 16-channel chunk (and
+    C % 4 != 0: no 16-byte loads), every instantiated r from 0 to 7."""
+    x1, x2 = _cv_inputs(shape, cuda_device, seed=sum(shape) + r)
+    got = corr_cuda.cost_volume_cuda(x1, x2, r)
+    ref = corr_cuda.cost_volume_plain(x1, x2, r)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+
+
+def test_cost_volume_kernel_unaligned_and_range(cuda_device):
+    """Maps that start off a 16-byte boundary take the word loads; a
+    search range past the instantiated ones raises."""
+    shape = (2, 6, 20, 32)
+    n = int(np.prod(shape))
+    flat = torch.randn(2 * n, generator=torch.Generator().manual_seed(3))
+    x1 = flat[:n].view(shape).to(cuda_device)
+    buf = torch.empty(n + 1, device=cuda_device)
+    buf[1:] = flat[n:2 * n].to(cuda_device)
+    x2 = buf[1:].view(shape)
+    assert x2.data_ptr() % 16 != 0 and x2.is_contiguous()
+    got = corr_cuda.cost_volume_cuda(x1, x2, 2)
+    ref = corr_cuda.cost_volume_plain(x1, x2, 2)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match="search_range"):
+        corr_cuda.cost_volume_cuda(x1, x2, corr_cuda.MAX_SEARCH_RANGE + 1)
+
+
 def test_cost_volume_backward(cuda_device):
     x1, x2 = _cv_inputs((1, 8, 8, 128), cuda_device)
     a, b = x1.clone().requires_grad_(True), x2.clone().requires_grad_(True)
@@ -82,8 +125,11 @@ def _warp_case(device, seed=0, mesh_shift=10.0, B=3, H=120, W=160,
 
 @pytest.mark.parametrize("shift,out_size", [(10.0, (144, 256)),
                                             (10.0, (97, 131)),
+                                            (10.0, (203, 389)),
                                             (900.0, (144, 256))])
 def test_fused_warp_kernel(cuda_device, shift, out_size):
+    """Bit-equal to the plain version, on canvases that are and are not
+    multiples of the kernel's 16 x 128 tile."""
     span = (140, 250)
     im, T, norm = _warp_case(cuda_device, mesh_shift=shift, span=span)
     n = fused_warp_cuda.LAUNCHES["fused_warp"]

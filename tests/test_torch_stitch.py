@@ -36,7 +36,9 @@ from stabstitch2_tpu_torch.config import StitchConfig
 from stabstitch2_tpu_torch.pipeline import transport
 from stabstitch2_tpu_torch.pipeline.compositor import composite_video
 from stabstitch2_tpu_torch.pipeline.smoothing import smooth_all_windows
-from stabstitch2_tpu_torch.pipeline.stitcher import init_stitcher
+from stabstitch2_tpu_torch.pipeline.stitcher import (VideoStitcher,
+                                                     init_stitcher,
+                                                     model_input)
 from stabstitch2_tpu_torch.utils.weights import from_jax_params
 
 from synthetic import make_two_view_clip, write_clip_dirs
@@ -147,11 +149,9 @@ class TestEntryPoints:
             with pytest.raises(ValueError):
                 StitchConfig(**kw)
         st = init_stitcher(0, model_h=MH, model_w=MW, device="cpu")
-        frames = np.zeros((7, 96, 120, 3), np.uint8)
-        with pytest.raises(NotImplementedError):
-            st.stitch_arrays(frames, None, frames, None)
+        frames = np.zeros((6, 96, 120, 3), np.uint8)
         with pytest.raises(ValueError, match="too short"):
-            st.stitch_arrays(frames[:6], None, frames[:6], None)
+            st.stitch_arrays(frames, None, frames, None)
 
     def test_cli_stitch_writes_mp4(self, tmp_path):
         write_clip_dirs(str(tmp_path / "data"), num_frames=7, height=360,
@@ -161,6 +161,66 @@ class TestEntryPoints:
                        "--fusion_mode", "LINEAR", "--device", "cpu"])
         out = tmp_path / "out" / "clip0.mp4"
         assert rc == 0 and out.exists() and out.stat().st_size > 1000
+
+
+class TestModelInput:
+    """The model input: given (lo), or resized from the frames on the
+    device, as the JAX package and its CLI do."""
+
+    @pytest.mark.parametrize("hw,model_hw", [((480, 640), (360, 480)),
+                                             ((96, 120), (128, 160)),
+                                             ((360, 480), (360, 480))])
+    def test_resize_matches_jax_image_resize(self, hw, model_hw):
+        hi = np.random.default_rng(2).integers(0, 256, (2, *hw, 3), np.uint8)
+        got = model_input(torch.from_numpy(hi), *model_hw)
+        ref = jax.image.resize(jnp.asarray(hi, jnp.float32),
+                               (2, *model_hw, 3), "bilinear") / 127.5 - 1.0
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4)
+
+    def test_lo_none_at_another_size_matches_jax(self, run):
+        """Frames of 192x240 for the 128x160 model: both sides resize on
+        the device (lo=None) and stitch."""
+        v1, v2 = make_two_view_clip(num_frames=8, height=192, width=240,
+                                    overlap=0.6, shake_px=2.0, seed=6)
+        ref = run["js"].stitch_arrays(v1, None, v2, None)
+        got = run["st"].stitch_arrays(v1, None, v2, None)
+        for k in ("smooth_mesh1", "smooth_mesh2"):
+            np.testing.assert_allclose(getattr(got, k).numpy(),
+                                       np.asarray(getattr(ref, k)),
+                                       atol=1e-3, err_msg=k)
+        assert (got.canvas.out_h, got.canvas.out_w) == (ref.canvas.out_h,
+                                                        ref.canvas.out_w)
+        assert got.frames.max() > 10
+        assert_frames_close(got.frames, np.asarray(ref.frames))
+
+    def test_float_frames_take_the_float_route(self, run):
+        """Float 0..255 frames with lo given keep their fractions (JAX
+        composites them on its float route) instead of being truncated."""
+        rng = np.random.default_rng(3)
+        f1, f2 = (np.minimum(v + rng.uniform(0, 1, v.shape), 255.0)
+                  .astype(np.float32) for v in (run["v1"], run["v2"]))
+        lo1, lo2 = f1 / 127.5 - 1.0, f2 / 127.5 - 1.0
+        ref = run["js"].stitch_arrays(f1, lo1, f2, lo2)
+        got = run["st"].stitch_arrays(f1, lo1, f2, lo2)
+        assert got.frames.max() > 10
+        assert_frames_close(got.frames, np.asarray(ref.frames))
+
+    def test_cli_stitch_passes_no_model_input(self, tmp_path, monkeypatch):
+        write_clip_dirs(str(tmp_path / "data"), num_frames=7, height=96,
+                        width=120, seed=1)
+        seen = []
+
+        def record(self, hi1, lo1, hi2, lo2):
+            seen.append((hi1.shape, hi1.dtype, lo1, lo2))
+            raise ValueError("recorded")
+
+        monkeypatch.setattr(VideoStitcher, "stitch_arrays", record)
+        rc = cli.main(["stitch", "--test_path", str(tmp_path / "data"),
+                       "--output_path", str(tmp_path / "out"),
+                       "--device", "cpu"])
+        assert rc == 1
+        assert seen == [((7, 96, 120, 3), np.uint8, None, None)]
 
 
 def _imports(path: pathlib.Path):
