@@ -10,7 +10,9 @@ Phases, each printing one JSON line with its seconds:
 2. ``build``: the ``nvcc`` calls that build ``csrc/*.cu`` into a plain-C
    library (bound with ``ctypes``; one compile per source, all started
    together, then the link), their wall seconds and ptxas's registers /
-   shared memory / spills per kernel. Then the float32 operations of the
+   shared memory / spills per kernel; the two kernels that evaluate the
+   spline (``fused_warp_kernel``, ``tps_coords_kernel``) must spill
+   nothing. Then the float32 operations of the
    accurate ``logf`` and of K2's bit-equal core path of it
    (``warp_common.cuh:log_core``), counted in the SASS (``cuobjdump
    -sass``) of probe kernels that do nothing else: the bounds of K2 and
@@ -751,6 +753,10 @@ def main() -> int:
     t = time.perf_counter()
     info = cuda_build.build()
     cuda_build.load_kernels()
+    for k in ("fused_warp_kernel", "tps_coords_kernel"):
+        rep = info.ptxas.get(k, {})
+        require(rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0,
+                f"{k} spills nothing: ptxas {rep}")
     logs = log_sass_ops()
     # the bounds count the cheapest log proven bit-equal (kernels phase)
     log_ops = logs["log_core_probe"][0]

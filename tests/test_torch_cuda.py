@@ -8,7 +8,8 @@ nor the JAX package, so it also runs on a machine without them:
 
 Tolerances: K1 1e-5 (the kernel sums the channels in another order);
 K2, K3 and K4 exact, since kernel and plain version do the same float32
-operations in the same order.
+operations in the same order (and K2 and K3 evaluate the spline through
+the same device routine, so K3 + K4 give K2's planes exactly).
 """
 
 import numpy as np
@@ -160,20 +161,48 @@ def test_stitch_on_card_launches_both_kernels(cuda_device):
     assert res.frames.shape[0] == 8 and res.frames.max() > 10
 
 
-@pytest.mark.parametrize("out_size,span", [((144, 256), (140, 250)),
-                                           ((97, 131), (90, 120)),
-                                           ((448, 608), (430, 600)),
-                                           ((1, 3), None)])
-def test_tps_coords_kernel(cuda_device, out_size, span):
-    _, T, norm = _warp_case(cuda_device, span=span or out_size)
+@pytest.mark.parametrize("out_size,span,B", [((144, 256), (140, 250), 3),
+                                             ((97, 131), (90, 120), 3),
+                                             ((448, 608), (430, 600), 3),
+                                             ((1, 3), None, 3),
+                                             ((203, 389), (190, 370), 3),
+                                             ((17, 129), None, 3),
+                                             ((203, 389), (190, 370), 1)])
+def test_tps_coords_kernel(cuda_device, out_size, span, B):
+    """Bit-equal to the plain version, on canvases that are and are not
+    multiples of the kernel's 16 x 128 tile, padded past the true extent
+    (span) or not."""
+    _, T, norm = _warp_case(cuda_device, B=B, span=span or out_size)
     n = tps_coords_cuda.LAUNCHES["tps_coords"]
     got = tps_coords_cuda.tps_coords(T, norm, out_size, grid_span=span)
     torch.cuda.synchronize()
     assert tps_coords_cuda.LAUNCHES["tps_coords"] == n + 1
     ref = tps_coords_cuda.tps_coords_plain(T, norm, out_size, grid_span=span)
     for g, r in zip(got, ref):
-        assert g.shape == (3, out_size[0] * out_size[1])
+        assert g.shape == (B, out_size[0] * out_size[1])
         torch.testing.assert_close(g, r.expand_as(g), atol=0, rtol=0)
+
+
+def test_k3_then_k4_equals_k2(cuda_device):
+    """Route B at the kernel level: K3's coordinates sampled by K4 (planes)
+    with the plain coverage mask give K2's B, G, R and mask planes bit for
+    bit, on a random mesh over a canvas that is not a multiple of the
+    tile."""
+    from stabstitch2_tpu_torch.ops.interp import bilinear_mask
+
+    out_size, span = (203, 389), (190, 370)
+    im, T, norm = _warp_case(cuda_device, seed=11, mesh_shift=15.0,
+                             span=span)
+    H, W = im.shape[1:3]
+    x, y = tps_coords_cuda.tps_coords(T, norm, out_size, grid_span=span)
+    pb, pg, pr, _ = patch_gather_cuda.bilinear_sample_patch_u8_cuda(
+        im, x, y, out_size, planes=True)
+    mask = bilinear_mask(H, W, x, y).reshape(im.shape[0], *out_size)
+    want = fused_warp_cuda.fused_warp_planes(im, T, norm, out_size,
+                                             grid_span=span)
+    assert bool(want[3].any()) and bool((want[3] < 0.5).any())
+    for g, r in zip((pb, pg, pr, mask), want[:4]):
+        torch.testing.assert_close(g, r, atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("planes", [False, True])

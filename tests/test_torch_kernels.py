@@ -188,11 +188,13 @@ def _tps_case(seed=0, B=2):
 
 class TestTPSCoordsPlain:
     # (36, 48) and (29, 48): the second has a row count that is not a
-    # multiple of the TPU kernel's 8-row tile; the last normalizes a
-    # padded canvas by a smaller true extent
+    # multiple of the TPU kernel's 8-row tile; the third normalizes a
+    # padded canvas by a smaller true extent; (45, 131) is wider than the
+    # CUDA kernel's 128-column tile and not a multiple of its 16 rows
     @pytest.mark.parametrize("out_size,span", [((36, 48), None),
                                                ((29, 48), None),
-                                               ((29, 48), (25, 40))])
+                                               ((29, 48), (25, 40)),
+                                               ((45, 131), (40, 120))])
     def test_matches_pallas_interpret_and_jnp(self, out_size, span):
         T, src = _tps_case()
         x, y = tps_coords_cuda.tps_coords(t(T), t(src), out_size,
