@@ -17,13 +17,16 @@ Phases, each printing one JSON line with its seconds:
    (``warp_common.cuh:log_core``), counted in the SASS (``cuobjdump
    -sass``) of probe kernels that do nothing else: the bounds of K2 and
    K3 count the latter.
-3. ``stitch``: the main path through the entry points a user calls,
-   ``init_stitcher(rng_seed=0, device="cuda")`` (random float32 weights
-   from the seed) and ``stitch_arrays`` on a synthetic two-view clip of 16
-   frames at 360x480 made from a numpy seed (``tests/synthetic.py``), at
-   the full width of the model (ResNet-18 trunks, 360x480 input, 7x9 mesh,
-   7-frame window). The kernels' launch counts are set to 0 just before
-   the run and read just after; each must be > 0.
+3. ``stitch``: the stitcher with float32 trunks,
+   ``init_stitcher(rng_seed=0, compute_dtype=torch.float32,
+   device="cuda")`` (random weights from the seed), and ``stitch_arrays``
+   on a synthetic two-view clip of 16 frames at 360x480 made from a numpy
+   seed (``tests/synthetic.py``), at the full width of the model
+   (ResNet-18 trunks, 360x480 input, 7x9 mesh, 7-frame window). The
+   kernels' launch counts are set to 0 just before the run and read just
+   after; each must be > 0. This phase, ``routes``, ``resize`` and
+   ``cpu_compare`` run float32 trunks, so that the float32 comparisons
+   hold.
 4. ``routes``: the composite's gather route (route B: K3 coordinates, K4
    sample) at full width, ``init_stitcher(rng_seed=0,
    config=StitchConfig(fused_warp=False, download_format="yuv420"))`` and
@@ -40,7 +43,22 @@ Phases, each printing one JSON line with its seconds:
    with the launch counts set to 0 just before and read just after (K1
    and K2 > 0); the card's model input against the CPU port's
    (<= RESIZE_ATOL).
-6. ``kernels``: each kernel against its plain PyTorch version on the card,
+6. ``cli``: the main path, ``cli stitch`` at its defaults (bf16 trunks,
+   I420 upload, yuv420 download, K2, the loader thread and the two-deep
+   begin/finish loop), driven through the CLI's own functions over 4
+   synthetic clips of 48 frames at 360x480 written as jpgs, with the
+   launch counts set to 0 just before and read just after (K1 and K2
+   > 0); then the same videos one at a time (``stitch_arrays`` and the
+   encode), in turns with the pipelined loop. Gates: each mp4 holds 48
+   frames, the pipelined frames equal ``stitch_arrays``' bit for bit, the
+   bf16 smooth meshes lie within BF16_MESH_BOUND_PX of a float32
+   stitcher's, and one ``stitch_begin`` waits for the card once (the
+   canvas fetch, by ``torch.cuda.set_sync_debug_mode``).
+7. ``trace``: one of those videos through ``--trace_dir``
+   (``torch.profiler``); the Chrome trace must name the cost_volume and
+   fused_warp kernels. Prints the card's idle share of the traced window
+   and the 5 device operations that took the most time.
+8. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the shapes the main path gives it, with CUDA-event times, the bound
    (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the H100
    SXM's published peaks; an FMA counts two operations) and the share of
@@ -48,11 +66,12 @@ Phases, each printing one JSON line with its seconds:
    runs at both search ranges the path gives it (r=5 and r=3); its entry
    carries each as a case and, at the top, their launch-weighted mean.
    The warp kernels run on the first chunk of the stitch phase (16 images
-   onto the padded canvas); K3 and K4 carry the routes phase's launches.
+   onto the padded canvas); K1 and K2 carry the cli phase's launches, K3
+   and K4 the routes phase's.
    K2 must equal its plain version bit for bit (planes and mask), and
    its log (``log_core``) must equal ``logf`` on every float32 from 1e-6
    to FLT_MAX.
-7. ``cpu_compare``: the same port on the CPU over the first 8 frames,
+9. ``cpu_compare``: the same port on the CPU over the first 8 frames,
    against the card: smooth meshes, and composited frames on the same
    meshes with AVERAGE and with LINEAR fusion (LINEAR reads K2's coverage
    masks).
@@ -67,15 +86,20 @@ missing.
 from __future__ import annotations
 
 import collections
+import glob
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
-T_FRAMES = 16        # clip length of the main-path run
+T_FRAMES = 16        # clip length of the float32 stitch, routes and resize runs
 CPU_FRAMES = 8       # frames the CPU comparison runs
+CLI_VIDEOS = 4       # the cli phase's dataset: videos of CLI_FRAMES frames
+CLI_FRAMES = 48
+CLI_ROUNDS = 2       # pipelined and sequential runs, in turns
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 
@@ -107,6 +131,10 @@ FP32_OPCODES = ("FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSETP", "FSET",
                 "MUFU", "I2F", "I2FP", "FCHK", "FRND")
 FRAC_DIFF = 1e-2
 FRAC_DIFF_GT1 = 1e-4
+# bf16 against float32 trunks, smooth meshes of the seed-0 random model at
+# full width: twice the gap of the JAX package's own bf16 and float32
+# stitchers on the CPU (tests/test_torch_entry.py: JAX_BF16_GAP_PX 0.0702)
+BF16_MESH_BOUND_PX = 2 * 0.0702
 
 
 def emit(obj) -> None:
@@ -192,7 +220,7 @@ def log_sass_ops():
 
 
 def phase_stitch(device, clip):
-    """The main path, counted: returns the stitcher and its result."""
+    """The float32 stitch, counted: returns the stitcher and its result."""
     import numpy as np
     import torch
 
@@ -200,7 +228,7 @@ def phase_stitch(device, clip):
     from stabstitch2_tpu_torch.pipeline.stitcher import init_stitcher
 
     v1, v2 = clip
-    st = init_stitcher(rng_seed=0, device=device)
+    st = init_stitcher(rng_seed=0, compute_dtype=torch.float32, device=device)
     st.stitch_arrays(v1, None, v2, None)          # warm-up: cuDNN, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -230,7 +258,7 @@ def phase_stitch(device, clip):
             "phase_ms": res.ms, "launches": launches,
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
             "frames_mean": float(f.mean())}
-    return st, res, launches, info
+    return st, res, info
 
 
 def k1_case(r, shape, launches, device):
@@ -545,7 +573,8 @@ def phase_routes(device, clip, st, res):
 
     v1, v2 = clip
     cfg_b = StitchConfig(fused_warp=False, download_format="yuv420")
-    sb = init_stitcher(rng_seed=0, config=cfg_b, device=device)
+    sb = init_stitcher(rng_seed=0, config=cfg_b, compute_dtype=torch.float32,
+                       device=device)
     sb.stitch_arrays(v1, None, v2, None)          # warm-up
     torch.cuda.synchronize()
     counters = (corr_cuda, fused_warp_cuda, tps_coords_cuda,
@@ -682,12 +711,15 @@ def phase_cpu_compare(st_cuda, clip):
     sample point lies within rounding of the image edge are live on one
     device and dead on the other).
     """
+    import torch
+
     from stabstitch2_tpu_torch.config import StitchConfig
     from stabstitch2_tpu_torch.pipeline.compositor import composite_video
     from stabstitch2_tpu_torch.pipeline.stitcher import init_stitcher
 
     v1, v2 = (v[:CPU_FRAMES] for v in clip)
-    st_cpu = init_stitcher(rng_seed=0, device="cpu")
+    st_cpu = init_stitcher(rng_seed=0, compute_dtype=torch.float32,
+                           device="cpu")
     a = st_cpu.stitch_arrays(v1, None, v2, None)
     b = st_cuda.stitch_arrays(v1, None, v2, None)
     mesh_err = max(float((getattr(a, k) - getattr(b, k).cpu()).abs().max())
@@ -717,6 +749,229 @@ def phase_cpu_compare(st_cuda, clip):
     if out["canvas_equal"]:
         out["full_run_frames"] = frame_diff(a.frames, b.frames)
     return out
+
+
+def mp4_frames(path: str) -> int:
+    """Frames cv2 decodes from an mp4."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    n = 0
+    try:
+        while cap.read()[0]:
+            n += 1
+    finally:
+        cap.release()
+    return n
+
+
+def mesh_gap(a, b) -> float:
+    return max(float((getattr(a, k) - getattr(b, k)).abs().max())
+               for k in ("smooth_mesh1", "smooth_mesh2"))
+
+
+def begin_syncs(st, arrays):
+    """The host waits for the card inside one ``stitch_begin`` without the
+    phase marks' waits, as ``torch.cuda.set_sync_debug_mode("warn")``
+    reports them: only the canvas fetch should remain."""
+    import warnings
+
+    import torch
+
+    st.sync_phases = False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                pending = st.stitch_begin(*arrays)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        st.stitch_finish(pending)
+    finally:
+        st.sync_phases = True
+    return [str(w.message).splitlines()[0] for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def phase_cli(device, tmp):
+    """``cli stitch`` at its defaults, through the functions the CLI runs
+    (``build_stitcher`` of the default flags, the loader thread, the
+    two-deep ``stitch_stream``, the mp4 sink) over CLI_VIDEOS synthetic
+    clips of CLI_FRAMES frames at 360x480, in turns with the same videos
+    one at a time (load, ``stitch_arrays``, encode); ``load_s`` times the
+    decode and I420 packing of all videos on one thread. The launch counts
+    are set to 0 just before the first pipelined run and read just after.
+    Gates: every mp4 holds CLI_FRAMES frames; the pipelined frames equal
+    ``stitch_arrays``' bit for bit; the bf16 smooth meshes lie within
+    BF16_MESH_BOUND_PX of a float32 stitcher's on each clip; one
+    ``stitch_begin`` waits for the card once (the canvas fetch)."""
+    import torch
+
+    from stabstitch2_tpu_torch import cli
+    from stabstitch2_tpu_torch.data.video_io import list_videos
+    from stabstitch2_tpu_torch.ops import corr_cuda, fused_warp_cuda
+    from stabstitch2_tpu_torch.pipeline.stitcher import init_stitcher
+    from synthetic import write_clip_dirs
+
+    data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+    for seed in range(CLI_VIDEOS):
+        write_clip_dirs(data, num_frames=CLI_FRAMES, height=360, width=480,
+                        seed=seed, video_name=f"clip{seed}")
+    args = cli.make_parser().parse_args(["stitch", "--test_path", data,
+                                         "--output_path", out])
+    st = cli.build_stitcher(args)
+    videos = list_videos(data)
+    size = (st.model_h, st.model_w)
+    t0 = time.perf_counter()
+    loaded = {os.path.basename(vd): arrays
+              for vd, arrays, _ in cli.load_videos(videos, size)}
+    load_s = time.perf_counter() - t0
+    require(all(a[0].ndim == 3 for a in loaded.values()),
+            "default upload is packed I420")
+    st.stitch_arrays(*loaded["clip0"])            # warm-up: cuDNN, allocator
+    mp4 = cli.mp4_sink(out)
+
+    def pipelined():
+        got = {}
+
+        def sink(name, result):
+            mp4(name, result)
+            got[name] = result
+
+        t0 = time.perf_counter()
+        done, failed = cli.stitch_stream(
+            st, cli.threaded(cli.load_videos(videos, size)), sink)
+        torch.cuda.synchronize()
+        require((done, failed) == (CLI_VIDEOS, 0),
+                f"pipelined run stitched {done}, failed {failed}")
+        return got, time.perf_counter() - t0
+
+    def sequential():
+        got = {}
+        t0 = time.perf_counter()
+        for vd, arrays, _ in cli.load_videos(videos, size):
+            name = os.path.basename(vd)
+            got[name] = st.stitch_arrays(*arrays)
+            mp4(name, got[name])
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    corr_cuda.LAUNCHES.clear()
+    fused_warp_cuda.LAUNCHES.clear()
+    pipe, pipe_s = pipelined()
+    launches = {"cost_volume_r5": corr_cuda.LAUNCHES[5],
+                "cost_volume_r3": corr_cuda.LAUNCHES[3],
+                "fused_warp": fused_warp_cuda.LAUNCHES["fused_warp"]}
+    peak = torch.cuda.max_memory_allocated()
+    require(all(n > 0 for n in launches.values()),
+            f"K1 and K2 launched on the default path: {launches}")
+    out_frames = {n: mp4_frames(os.path.join(out, n + ".mp4"))
+                  for n in loaded}
+    require(all(n == CLI_FRAMES for n in out_frames.values()),
+            f"mp4 frame counts {out_frames}")
+    seq, seq_s = sequential()
+    walls = {"pipelined_s": [pipe_s], "sequential_s": [seq_s]}
+    for _ in range(CLI_ROUNDS - 1):
+        walls["pipelined_s"].append(pipelined()[1])
+        walls["sequential_s"].append(sequential()[1])
+    for name, r in pipe.items():
+        same = (r.frames.shape == seq[name].frames.shape
+                and bool((r.frames == seq[name].frames).all()))
+        require(same, f"{name}: pipelined frames equal stitch_arrays'")
+        require(r.frame_format == "i420", f"{name}: yuv420 download")
+
+    f32 = init_stitcher(rng_seed=0, config=st.config,
+                        compute_dtype=torch.float32, device=device)
+    f32.stitch_arrays(*loaded["clip0"])           # warm-up
+    gaps, f32_ms = {}, {}
+    for name, arrays in loaded.items():
+        r = f32.stitch_arrays(*arrays)
+        gaps[name] = mesh_gap(seq[name], r)
+        f32_ms[name] = r.ms
+    require(max(gaps.values()) <= BF16_MESH_BOUND_PX,
+            f"bf16 vs float32 smooth meshes {gaps} px > {BF16_MESH_BOUND_PX}")
+    syncs = begin_syncs(st, loaded["clip0"])
+    require(len(syncs) == 1, f"one wait in stitch_begin (the canvas fetch): "
+                             f"{syncs}")
+    frames = CLI_VIDEOS * CLI_FRAMES
+    return st, videos, {
+        "phase": "cli", "videos": CLI_VIDEOS, "frames_per_video": CLI_FRAMES,
+        "frame_hw": [360, 480], "flags": "defaults",
+        "compute_dtype": str(st.spatial_net.feature_extractor_stage1
+                             .compute_dtype),
+        "upload": "i420", "download": st.config.download_format,
+        "load_s": load_s, "wall_s": walls, "fps_pipelined": [frames / w for w in
+                                           walls["pipelined_s"]],
+        "fps_sequential": [frames / w for w in walls["sequential_s"]],
+        "phase_ms_pipelined": {n: r.ms for n, r in pipe.items()},
+        "encode_fps": {n: r.fps["encode"] for n, r in seq.items()},
+        "phase_ms_bf16": {n: r.ms for n, r in seq.items()},
+        "phase_ms_f32": f32_ms, "launches": launches,
+        "max_memory_allocated_bytes": peak, "mp4_frames": out_frames,
+        "bf16_vs_f32_mesh_px": gaps, "bf16_mesh_bound_px": BF16_MESH_BOUND_PX,
+        "stitch_begin_syncs": syncs}
+
+
+def phase_trace(st, videos, tmp):
+    """One video through ``--trace_dir``: ``stitch_stream(...,
+    trace_dir=...)`` as ``cmd_stitch`` calls it. Gate: the Chrome trace
+    exists and names the cost_volume and fused_warp kernels. Reports the
+    card's idle share of the traced window (1 - the union of kernel and
+    copy intervals over the window) and the 5 device operations that took
+    the most time; the most launched device operations and the most
+    frequent host-side ATen operations (count, inclusive ms)."""
+    from stabstitch2_tpu_torch import cli
+
+    d = os.path.join(tmp, "trace")
+    size = (st.model_h, st.model_w)
+    done, _ = cli.stitch_stream(st, cli.load_videos(videos[:1], size),
+                                cli.mp4_sink(os.path.join(tmp, "trace_out")),
+                                trace_dir=d)
+    files = sorted(glob.glob(os.path.join(d, "*.json")))
+    require(done == 1 and len(files) == 1, f"one trace file: {files}")
+    with open(files[0]) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    dev = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    names = {e["name"] for e in dev if e["cat"] == "kernel"}
+    for k in ("cost_volume", "fused_warp"):
+        require(any(k in n for n in names), f"trace names a {k} kernel")
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    busy, end = 0.0, t0
+    for e in sorted(dev, key=lambda e: e["ts"]):
+        a, b = max(e["ts"], end), e["ts"] + e["dur"]
+        if b > a:
+            busy += b - a
+            end = b
+    by_name, launches = collections.Counter(), collections.Counter()
+    for e in dev:
+        by_name[e["name"][:120]] += e["dur"]
+        launches[e["name"][:120]] += 1
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    op_n, op_us = collections.Counter(), collections.Counter()
+    for e in ops:
+        op_n[e["name"]] += 1
+        op_us[e["name"]] += e["dur"]
+    window_ms = (t1 - t0) / 1e3
+    return {"phase": "trace", "file_bytes": os.path.getsize(files[0]),
+            "window_ms": window_ms, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / (t1 - t0),
+            "kernels": len([e for e in dev if e["cat"] == "kernel"]),
+            "copies": len([e for e in dev if e["cat"] != "kernel"]),
+            "device_ms_by_category": {
+                c: sum(e["dur"] for e in dev if e["cat"] == c) / 1e3
+                for c in ("kernel", "gpu_memcpy", "gpu_memset")},
+            "top5_device_ms": [[n, us / 1e3]
+                               for n, us in by_name.most_common(5)],
+            "top5_device_launches": launches.most_common(5),
+            "cpu_ops": len(ops),
+            "top8_cpu_ops_by_count": [[n, c, op_us[n] / 1e3]
+                                      for n, c in op_n.most_common(8)]}
 
 
 def main() -> int:
@@ -771,7 +1026,7 @@ def main() -> int:
     t = time.perf_counter()
     clip = make_two_view_clip(num_frames=T_FRAMES, height=360, width=480,
                               overlap=0.5, shake_px=4.0, seed=0)
-    st, res, launches, info = phase_stitch(device, clip)
+    st, res, info = phase_stitch(device, clip)
     info["seconds"] = time.perf_counter() - t
     emit(info)
 
@@ -785,6 +1040,20 @@ def main() -> int:
     resize["seconds"] = time.perf_counter() - t
     emit(resize)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        st_cli, videos, cli_info = phase_cli(device, tmp)
+        cli_info["seconds"] = time.perf_counter() - t
+        emit(cli_info)
+
+        t = time.perf_counter()
+        tr = phase_trace(st_cli, videos, tmp)
+        tr["seconds"] = time.perf_counter() - t
+        emit(tr)
+    del st_cli
+
+    # K1 and K2 carry the launches of the default path (the cli phase)
+    launches = cli_info["launches"]
     t = time.perf_counter()
     h8, w8 = 360 // 8, 480 // 8
     kernels = [

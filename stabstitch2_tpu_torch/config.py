@@ -21,6 +21,17 @@ MODEL_W = 480
 # online smoothing window length
 WINDOW = 7
 
+# fusion of each reference preset: its ssd scripts fuse AVERAGE, its tra
+# scripts LINEAR (the reference's test_online_ssd.py / test_online_tra.py)
+PRESET_FUSION = {"ssd": "AVERAGE", "tra": "LINEAR"}
+
+
+def preset_fusion_mode(preset: str, fusion_mode: Optional[str] = None) -> str:
+    """The fusion mode: ``fusion_mode`` when given, else the preset's."""
+    if preset not in PRESET_FUSION:
+        raise ValueError(f"unknown preset {preset!r}")
+    return fusion_mode or PRESET_FUSION[preset]
+
 
 @dataclasses.dataclass(frozen=True)
 class StitchConfig:

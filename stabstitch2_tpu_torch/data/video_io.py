@@ -2,9 +2,10 @@
 
 A video is a directory with ``video1/*.jpg`` and ``video2/*.jpg``; frames
 are used at native resolution (composite) and resized to the model input,
-normalized to [-1, 1]. Decoding is cv2 only; output is mp4 from uint8 BGR
-or from packed I420 (the yuv420 download). cv2 is imported by the
-functions that decode or encode, so the compositor can use
+normalized to [-1, 1]. Decoding is cv2 only; frames can be packed to I420
+for the upload (:func:`bgr_to_i420`); output is mp4 from uint8 BGR or from
+packed I420 (the yuv420 download). cv2 is imported by the functions that
+decode, convert or encode, so the compositor can use
 :func:`pack_i420_host` where cv2 is not installed.
 """
 
@@ -56,6 +57,22 @@ def load_video_pair(video_dir: str,
     hi2, lo2 = load_view(video_dir, "video2", model_size)
     T = min(len(lo1), len(lo2))
     return hi1[:T], lo1[:T], hi2[:T], lo2[:T]
+
+
+def bgr_to_i420(frames: np.ndarray) -> np.ndarray:
+    """uint8 BGR [T, H, W, 3] (H, W even) -> packed I420 [T, H*3//2, W].
+
+    The host side of the 1.5-byte/px upload (cv2); the device unpacks with
+    ``ops/yuv.py:unpack_i420_u8``. Raises ValueError on odd sizes, which
+    I420 cannot hold; the caller then uploads BGR.
+    """
+    import cv2
+
+    T, H, W, _ = frames.shape
+    if H % 2 or W % 2:
+        raise ValueError(f"I420 needs even dims, got {H}x{W}")
+    return np.stack([cv2.cvtColor(frames[t], cv2.COLOR_BGR2YUV_I420)
+                     for t in range(T)])
 
 
 def pack_i420_host(y: np.ndarray, u: np.ndarray, v: np.ndarray

@@ -8,6 +8,19 @@ conv, relu, conv, relu, pool per stage and of Linear, ReLU, ... layers.
 
 Every module takes and returns NHWC tensors; NCHW exists only inside,
 around the convolutions.
+
+Compute dtype, as the Flax modules' ``dtype`` field: parameters and
+BatchNorm statistics stay float32. :class:`ResNetStage1`,
+:class:`ConvHead` and :class:`MLPHead` cast their input to their
+``compute_dtype`` (float32 by default), and every convolution and linear
+layer computes in the dtype of its input, casting its float32 parameters
+per call. The casts are explicit, not ``torch.autocast``, so the CPU and
+the card cast at the same points, the JAX package's. BatchNorm takes the
+bfloat16 activations with its float32 statistics and affine parameters,
+normalizes in float32 and rounds the result to bfloat16: what Flax's
+``BatchNorm(dtype=bfloat16)`` does (it promotes to float32 and casts
+back), and what PyTorch's batch_norm does on both devices for a
+bfloat16 input with float32 parameters.
 """
 
 from __future__ import annotations
@@ -15,6 +28,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -24,6 +38,33 @@ def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
 
 def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in its input's dtype."""
+
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(x.dtype),
+                                  _cast(self.bias, x.dtype))
+
+
+class Conv3d(nn.Conv3d):
+    """``nn.Conv3d`` computing in its input's dtype."""
+
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(x.dtype),
+                                  _cast(self.bias, x.dtype))
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in its input's dtype."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+
+
+def _cast(p, dtype):
+    return None if p is None else p.to(dtype)
 
 
 def conv_out(n: int, stride: int = 2) -> int:
@@ -36,15 +77,15 @@ class BasicBlock(nn.Module):
 
     def __init__(self, cin: int, cout: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(cin, cout, 3, stride, 1, bias=False)
         self.bn1 = nn.BatchNorm2d(cout)
         self.relu = nn.ReLU()
-        self.conv2 = nn.Conv2d(cout, cout, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(cout, cout, 3, 1, 1, bias=False)
         self.bn2 = nn.BatchNorm2d(cout)
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(
-                nn.Conv2d(cin, cout, 1, stride, bias=False),
+                Conv2d(cin, cout, 1, stride, bias=False),
                 nn.BatchNorm2d(cout))
 
     def forward(self, x):
@@ -56,15 +97,17 @@ class BasicBlock(nn.Module):
 class ResNetStage1(nn.Sequential):
     """conv1 -> bn -> relu -> maxpool -> layer1 -> layer2 (H/8, 128 ch)."""
 
-    def __init__(self):
+    def __init__(self, compute_dtype: torch.dtype = torch.float32):
         super().__init__(
-            nn.Conv2d(3, 64, 7, 2, 3, bias=False), nn.BatchNorm2d(64),
+            Conv2d(3, 64, 7, 2, 3, bias=False), nn.BatchNorm2d(64),
             nn.ReLU(), nn.MaxPool2d(3, 2, 1),
             nn.Sequential(BasicBlock(64, 64), BasicBlock(64, 64)),
             nn.Sequential(BasicBlock(64, 128, 2), BasicBlock(128, 128)))
+        self.compute_dtype = compute_dtype
 
     def forward(self, x):
-        return nchw_to_nhwc(super().forward(nhwc_to_nchw(x)))
+        x = nhwc_to_nchw(x.to(self.compute_dtype))
+        return nchw_to_nhwc(super().forward(x))
 
 
 class ResNetStage2(nn.Sequential):
@@ -81,32 +124,38 @@ class ResNetStage2(nn.Sequential):
 class ConvHead(nn.Sequential):
     """(conv3x3 -> relu) x2 -> maxpool2 per stage, bias-free convs."""
 
-    def __init__(self, cin: int, stage_features: Sequence[int]):
+    def __init__(self, cin: int, stage_features: Sequence[int],
+                 compute_dtype: torch.dtype = torch.float32):
         layers = []
         for feat in stage_features:
-            layers += [nn.Conv2d(cin, feat, 3, 1, 1, bias=False), nn.ReLU(),
-                       nn.Conv2d(feat, feat, 3, 1, 1, bias=False), nn.ReLU(),
+            layers += [Conv2d(cin, feat, 3, 1, 1, bias=False), nn.ReLU(),
+                       Conv2d(feat, feat, 3, 1, 1, bias=False), nn.ReLU(),
                        nn.MaxPool2d(2, 2)]
             cin = feat
         super().__init__(*layers)
+        self.compute_dtype = compute_dtype
 
     def forward(self, x):
-        return nchw_to_nhwc(super().forward(nhwc_to_nchw(x)))
+        x = nhwc_to_nchw(x.to(self.compute_dtype))
+        return nchw_to_nhwc(super().forward(x))
 
 
 class MLPHead(nn.Sequential):
     """Linear layers with ReLU between them; input flattened in C,H,W order."""
 
-    def __init__(self, dims: Sequence[int]):
+    def __init__(self, dims: Sequence[int],
+                 compute_dtype: torch.dtype = torch.float32):
         layers = []
         for i in range(len(dims) - 1):
-            layers.append(nn.Linear(dims[i], dims[i + 1]))
+            layers.append(Linear(dims[i], dims[i + 1]))
             if i + 2 < len(dims):
                 layers.append(nn.ReLU())
         super().__init__(*layers)
+        self.compute_dtype = compute_dtype
 
     def forward(self, x):
-        return super().forward(nhwc_to_nchw(x).reshape(x.shape[0], -1))
+        x = nhwc_to_nchw(x).reshape(x.shape[0], -1)
+        return super().forward(x.to(self.compute_dtype))
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:

@@ -5,6 +5,12 @@ Stage 1: shared ResNet-18 features at H/16 -> CCL flow -> conv+FC head ->
 homography warp of both H/8 maps toward the middle plane. Stage 2: two
 cost volumes at search range 5 (kernel K1, ``ops/corr_cuda.py``) ->
 per-view conv+FC heads -> residual TPS mesh motions.
+
+``compute_dtype`` runs the trunk and the heads in that dtype (the JAX
+package's ``SpatialNet(dtype=...)``); their results return to float32
+where the JAX module casts them: before the CCL flow, ``offset_1``, the
+H/8 features before the homography warp (so K1 always sees float32) and
+the mesh offsets.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from stabstitch2_tpu_torch.ops.cost_volume import ccl_flow
 from stabstitch2_tpu_torch.ops.dlt import solve_dlt
 from stabstitch2_tpu_torch.ops.homography import homo_warp, normalize_homography
 from stabstitch2_tpu_torch.ops.mesh import h2mesh, rigid_mesh
+from stabstitch2_tpu_torch.utils.transfer import constant
 
 
 def feature_sizes(model_h: int, model_w: int):
@@ -39,8 +46,8 @@ def feature_sizes(model_h: int, model_w: int):
 def corner_points(img_h: float, img_w: float, batch: int,
                   dtype=torch.float32, device=None) -> torch.Tensor:
     """The four image corners [B, 4, 2] in the reference's order TL, TR, BL, BR."""
-    pts = torch.tensor([[0.0, 0.0], [img_w, 0.0], [0.0, img_h],
-                        [img_w, img_h]], dtype=dtype, device=device)
+    pts = constant([[0.0, 0.0], [img_w, 0.0], [0.0, img_h], [img_w, img_h]],
+                   dtype, device)
     return pts[None].expand(batch, 4, 2)
 
 
@@ -53,7 +60,7 @@ def bidirectional_homographies(H_motion: torch.Tensor, img_h: float,
                         H_motion.device) / scale
     H = solve_dlt(src, src + H_motion / scale)
     H_tgt = solve_dlt(src, src + (H_motion / 2.0) / scale)
-    H_ref = torch.einsum("bij,bjk->bik", torch.linalg.inv(H), H_tgt)
+    H_ref = torch.einsum("bij,bjk->bik", torch.linalg.inv_ex(H).inverse, H_tgt)
     return H_ref, H_tgt
 
 
@@ -61,21 +68,23 @@ class SpatialNet(nn.Module):
     """(H_motion [B, 8], mesh_motion_ref, mesh_motion_tgt [B, GH+1, GW+1, 2])."""
 
     def __init__(self, model_h: int = MODEL_H, model_w: int = MODEL_W,
-                 grid_h: int = GRID_H, grid_w: int = GRID_W):
+                 grid_h: int = GRID_H, grid_w: int = GRID_W,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.grid_h, self.grid_w = grid_h, grid_w
         (h8, w8), (h16, w16) = feature_sizes(model_h, model_w)
         mesh_out = (grid_h + 1) * (grid_w + 1) * 2
-        self.feature_extractor_stage1 = ResNetStage1()
+        dt = compute_dtype
+        self.feature_extractor_stage1 = ResNetStage1(dt)
         self.feature_extractor_stage2 = ResNetStage2()
-        self.regressNet1_part1 = ConvHead(2, (64, 128, 128))
+        self.regressNet1_part1 = ConvHead(2, (64, 128, 128), dt)
         self.regressNet1_part2 = MLPHead(
-            (128 * (h16 // 8) * (w16 // 8), 512, 128, 8))
+            (128 * (h16 // 8) * (w16 // 8), 512, 128, 8), dt)
         head_in = 256 * (h8 // 16) * (w8 // 16)
-        self.regressNet2_part1_ref = ConvHead(121, (64, 128, 128, 256))
-        self.regressNet2_part2_ref = MLPHead((head_in, 1024, 512, mesh_out))
-        self.regressNet2_part1_tgt = ConvHead(121, (64, 128, 128, 256))
-        self.regressNet2_part2_tgt = MLPHead((head_in, 1024, 512, mesh_out))
+        self.regressNet2_part1_ref = ConvHead(121, (64, 128, 128, 256), dt)
+        self.regressNet2_part2_ref = MLPHead((head_in, 1024, 512, mesh_out), dt)
+        self.regressNet2_part1_tgt = ConvHead(121, (64, 128, 128, 256), dt)
+        self.regressNet2_part2_tgt = MLPHead((head_in, 1024, 512, mesh_out), dt)
 
     def forward(self, img1: torch.Tensor, img2: torch.Tensor):
         B, img_h, img_w, _ = img1.shape
@@ -85,15 +94,17 @@ class SpatialNet(nn.Module):
         f2_16 = self.feature_extractor_stage2(f2_8)
 
         # stage 1: global 4-point homography from the CCL flow
-        flow = ccl_flow(f1_16, f2_16)
-        offset_1 = self.regressNet1_part2(self.regressNet1_part1(flow))
+        flow = ccl_flow(f1_16.float(), f2_16.float())
+        offset_1 = self.regressNet1_part2(self.regressNet1_part1(flow)).float()
 
         # bidirectional split at 1/8 scale and feature warp
         H_ref, H_tgt = bidirectional_homographies(
             offset_1.reshape(B, 4, 2), img_h, img_w, scale=8.0)
         h8, w8 = img_h // 8, img_w // 8
-        wf1 = homo_warp(f1_8, normalize_homography(H_ref, h8, w8), (h8, w8))
-        wf2 = homo_warp(f2_8, normalize_homography(H_tgt, h8, w8), (h8, w8))
+        wf1 = homo_warp(f1_8.float(), normalize_homography(H_ref, h8, w8),
+                        (h8, w8))
+        wf2 = homo_warp(f2_8.float(), normalize_homography(H_tgt, h8, w8),
+                        (h8, w8))
 
         # stage 2: residual mesh motion per view (two K1 launches)
         corr_ref = cost_volume_cuda(wf1.contiguous(), wf2.contiguous(), 5)
@@ -103,7 +114,8 @@ class SpatialNet(nn.Module):
         offset_tgt = self.regressNet2_part2_tgt(
             self.regressNet2_part1_tgt(corr_tgt))
         shape = (B, self.grid_h + 1, self.grid_w + 1, 2)
-        return offset_1, offset_ref.reshape(shape), offset_tgt.reshape(shape)
+        return (offset_1, offset_ref.float().reshape(shape),
+                offset_tgt.float().reshape(shape))
 
 
 def spatial_motions(H_motion: torch.Tensor, mesh_motion_ref: torch.Tensor,

@@ -21,5 +21,5 @@ def solve_dlt(src_p: torch.Tensor, dst_p: torch.Tensor) -> torch.Tensor:
     M1 = torch.stack([row_even, row_odd], dim=2).reshape(B, 8, 6)
     M2 = torch.einsum("bpi,bpj->bpij", dst_p, src_p).reshape(B, 8, 2)
     A = torch.cat([M1, -M2], dim=2)                                 # [B,8,8]
-    h8 = torch.linalg.solve(A, dst_p.reshape(B, 8, 1)).reshape(B, 8)
+    h8 = torch.linalg.solve_ex(A, dst_p.reshape(B, 8, 1)).result.reshape(B, 8)
     return torch.cat([h8, torch.ones(B, 1, **kw)], dim=1).reshape(B, 3, 3)

@@ -12,6 +12,7 @@ from typing import Tuple
 import torch
 
 from stabstitch2_tpu_torch.ops.interp import bilinear_sample
+from stabstitch2_tpu_torch.utils.transfer import constant
 
 
 def normalized_grid(height: int, width: int, dtype=torch.float32,
@@ -50,8 +51,8 @@ def normalize_homography(H: torch.Tensor, height: float,
                          width: float) -> torch.Tensor:
     """Conjugate a pixel homography into normalized coords: M^-1 H M."""
     w2, h2 = float(width) / 2.0, float(height) / 2.0
-    kw = dict(dtype=H.dtype, device=H.device)
-    M = torch.tensor([[w2, 0.0, w2], [0.0, h2, h2], [0.0, 0.0, 1.0]], **kw)
-    M_inv = torch.tensor([[1.0 / w2, 0.0, -1.0], [0.0, 1.0 / h2, -1.0],
-                          [0.0, 0.0, 1.0]], **kw)
+    M = constant([[w2, 0.0, w2], [0.0, h2, h2], [0.0, 0.0, 1.0]], H.dtype,
+                 H.device)
+    M_inv = constant([[1.0 / w2, 0.0, -1.0], [0.0, 1.0 / h2, -1.0],
+                      [0.0, 0.0, 1.0]], H.dtype, H.device)
     return torch.einsum("ij,bjk,kl->bil", M_inv, H, M)

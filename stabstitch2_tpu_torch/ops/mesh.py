@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from stabstitch2_tpu_torch.config import GRID_H, GRID_W
+from stabstitch2_tpu_torch.utils.transfer import constant
 
 
 def rigid_mesh(height: float, width: float, *, grid_h: int = GRID_H,
@@ -36,16 +37,14 @@ def normalize_mesh(mesh: torch.Tensor, height, width) -> torch.Tensor:
     else:
         sx = np.float32(2.0) / np.float32(width)
         sy = np.float32(2.0) / np.float32(height)
-    scale = torch.tensor([sx, sy], dtype=mesh.dtype, device=mesh.device)
-    return mesh * scale - 1.0
+    return mesh * constant([sx, sy], mesh.dtype, mesh.device) - 1.0
 
 
 def denormalize_mesh(mesh: torch.Tensor, height: float,
                      width: float) -> torch.Tensor:
     """Inverse of :func:`normalize_mesh`."""
-    scale = torch.tensor([width / 2.0, height / 2.0], dtype=mesh.dtype,
-                         device=mesh.device)
-    return (mesh + 1.0) * scale
+    return (mesh + 1.0) * constant([width / 2.0, height / 2.0], mesh.dtype,
+                                   mesh.device)
 
 
 def mesh_points(mesh: torch.Tensor) -> torch.Tensor:
@@ -78,5 +77,6 @@ def h2mesh(H: torch.Tensor, rigid: torch.Tensor) -> torch.Tensor:
     if rigid.dim() == 3:
         rigid = rigid.expand(B, *rigid.shape)
     gh, gw = rigid.shape[-3] - 1, rigid.shape[-2] - 1
-    mapped = apply_homography_points(torch.linalg.inv(H), mesh_points(rigid))
+    mapped = apply_homography_points(torch.linalg.inv_ex(H).inverse,
+                                     mesh_points(rigid))
     return points_mesh(mapped, grid_h=gh, grid_w=gw)

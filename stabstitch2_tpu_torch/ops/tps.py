@@ -46,7 +46,7 @@ def tps_params(source: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     B = source.shape[0]
     rhs = torch.cat([target, torch.zeros(B, 3, 2, dtype=target.dtype,
                                          device=target.device)], dim=1)
-    return torch.linalg.solve(_system(source), rhs).transpose(1, 2)
+    return torch.linalg.solve_ex(_system(source), rhs).result.transpose(1, 2)
 
 
 def tps_params_shared_source(source: torch.Tensor,
@@ -56,7 +56,7 @@ def tps_params_shared_source(source: torch.Tensor,
     The system is factored once and back-substituted for every target.
     """
     B = targets.shape[0]
-    LU, piv = torch.linalg.lu_factor(_system(source[None])[0])
+    LU, piv, _ = torch.linalg.lu_factor_ex(_system(source[None])[0])
     rhs = torch.cat([targets, torch.zeros(B, 3, 2, dtype=targets.dtype,
                                           device=targets.device)], dim=1)
     P3 = rhs.shape[1]

@@ -1,11 +1,15 @@
-"""BGR -> YUV 4:2:0 (I420) conversion for the yuv420 download (port of
-``ops/yuv.py``, output side).
+"""YUV 4:2:0 (I420) conversions (port of ``ops/yuv.py``).
 
-The mp4 encoder converts to 4:2:0 anyway, so the compositor can emit I420
-planes: half the device->host bytes of uint8 BGR. Conventions are
-OpenCV's ``COLOR_BGR2YUV_I420``: limited-range BT.601 coefficients and
-top-left 2x2 chroma decimation. Quantization rounds half to even
-(``torch.round``, as ``jnp.round``), then clips to 0..255.
+Download side: the mp4 encoder converts to 4:2:0 anyway, so the
+compositor can emit I420 planes, half the device->host bytes of uint8
+BGR. Conventions are OpenCV's ``COLOR_BGR2YUV_I420``: limited-range BT.601
+coefficients and top-left 2x2 chroma decimation. Quantization rounds half
+to even (``torch.round``, as ``jnp.round``), then clips to 0..255.
+
+Upload side: frames go up as packed I420 (1.5 bytes per pixel; source
+jpgs and mp4s are 4:2:0 anyway) and :func:`unpack_i420_u8` turns them
+into uint8 BGR on the device. Plain tensor ops, as the JAX package
+computes them in XLA.
 """
 
 from __future__ import annotations
@@ -61,3 +65,39 @@ def pack_i420(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor
     flat = torch.cat([y.reshape(B, -1), u.reshape(B, -1), v.reshape(B, -1)],
                      dim=1)
     return flat.reshape(B, H * 3 // 2, W)
+
+
+def i420_to_bgr(packed: torch.Tensor) -> torch.Tensor:
+    """Packed I420 [B, H*3//2, W] (uint8 or float) -> float32 BGR
+    [B, H, W, 3], clipped to 0..255: limited-range BT.601, 2x nearest
+    chroma upsampling (the inverse of the conventions above).
+
+    The planes lie one after the other in the buffer (cv2's layout), so
+    they are split by element count, not by rows: when H % 4 != 0 the U
+    plane ends in the middle of a row.
+    """
+    B, H15, W = packed.shape
+    H = H15 * 2 // 3
+    flat = packed.to(torch.float32).reshape(B, -1)
+    n = H * W
+    y = flat[:, :n].reshape(B, H, W)
+    u = flat[:, n:n + n // 4].reshape(B, H // 2, W // 2)
+    v = flat[:, n + n // 4:].reshape(B, H // 2, W // 2)
+
+    def up(c):   # 2x nearest, by broadcasting (no data-dependent sizes)
+        return c[:, :, None, :, None].expand(B, H // 2, 2, W // 2, 2).reshape(
+            B, H, W)
+
+    u = up(u) - 128.0
+    v = up(v) - 128.0
+    c = (y - 16.0) * 1.164383
+    b = c + 2.017232 * u
+    g = c - 0.391762 * u - 0.812968 * v
+    r = c + 1.596027 * v
+    return torch.clamp(torch.stack([b, g, r], -1), 0.0, 255.0)
+
+
+def unpack_i420_u8(packed_u8: torch.Tensor) -> torch.Tensor:
+    """Packed I420 [.., H*3//2, W] -> uint8 BGR [.., H, W, 3]: rounded
+    half to even, then uint8 (``i420_to_bgr`` clips)."""
+    return torch.round(i420_to_bgr(packed_u8)).to(torch.uint8)

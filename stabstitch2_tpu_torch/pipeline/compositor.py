@@ -29,6 +29,11 @@ one gather, K4, and it cannot overflow, so there is no repair leg):
   mask in plain PyTorch (the JAX package has no kernel for them either);
   yuv420 converts the clipped float fusion, unchained, as in JAX.
 - float input (not uint8): the coordinates as route B, ``bilinear_sample``.
+
+:func:`composite_begin` enqueues a video's chunks and their copies into
+host buffers (page-locked on a card, copied with ``non_blocking=True``)
+and returns at once; :func:`composite_finish` waits for the copies and
+assembles the frames. A caller can begin the next video in between.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from stabstitch2_tpu_torch.ops.patch_gather_cuda import (
 from stabstitch2_tpu_torch.ops.tps import tps_params, tps_sample_coords
 from stabstitch2_tpu_torch.ops.yuv import (bgr_planes_to_yuv420, bgr_to_yuv420,
                                            bgr_u8_to_yuv420)
+from stabstitch2_tpu_torch.utils.transfer import constant, to_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,14 +76,17 @@ class Canvas:
 def scale_meshes(mesh: torch.Tensor, img_h: int, img_w: int,
                  model_h: int = MODEL_H, model_w: int = MODEL_W) -> torch.Tensor:
     """Rescale model-resolution meshes to the frame resolution."""
-    s = torch.tensor([img_w / float(model_w), img_h / float(model_h)],
-                     dtype=mesh.dtype, device=mesh.device)
-    return mesh * s
+    return mesh * constant([img_w / float(model_w), img_h / float(model_h)],
+                           mesh.dtype, mesh.device)
 
 
 def compute_canvas(mesh1: torch.Tensor, mesh2: torch.Tensor,
                    bucket: int = 128) -> Canvas:
-    """Canvas from the global extent of both views' meshes [T, GH+1, GW+1, 2]."""
+    """Canvas from the global extent of both views' meshes [T, GH+1, GW+1, 2].
+
+    Fetches the meshes to the host: the one wait for the device that
+    :func:`composite_begin` needs, since the canvas size sets the shapes.
+    """
     m = torch.stack([mesh1, mesh2]).detach().cpu().numpy()
     x_min, x_max = float(m[..., 0].min()), float(m[..., 0].max())
     y_min, y_max = float(m[..., 1].min()), float(m[..., 1].max())
@@ -193,8 +202,27 @@ def _to_device(x, device) -> torch.Tensor:
     """Frames onto the device: numpy arrays as uint8 (as the JAX package
     takes host frames), tensors as they are."""
     if isinstance(x, np.ndarray):
-        x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.uint8))
+        return to_device(np.ascontiguousarray(x, dtype=np.uint8), device)
     return x.to(device)
+
+
+@dataclasses.dataclass
+class PendingComposite:
+    """A video's composite in flight (:func:`composite_begin`)."""
+
+    host: List[torch.Tensor]    # uint8 Y, U, V [T, ..] or BGR [T, oh, ow, 3]
+    canvas: Canvas
+    out_format: str
+    computed: Optional[torch.cuda.Event]  # the last chunk's compute is done
+    copied: Optional[torch.cuda.Event]    # every copy into `host` is done
+
+
+def _record(device: torch.device) -> Optional[torch.cuda.Event]:
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
 
 
 def composite_begin(img1, img2, smooth_mesh1: torch.Tensor,
@@ -205,8 +233,11 @@ def composite_begin(img1, img2, smooth_mesh1: torch.Tensor,
 
     img1/img2: [T, H, W, 3] uint8 (numpy or tensor; a float tensor takes
     the float route); smooth_mesh*: [T, GH+1, GW+1, 2] model-resolution
-    meshes. Returns the pending state for :func:`composite_finish`: the
-    cropped chunks, still on the device, the canvas and the format.
+    meshes. Returns the pending state for :func:`composite_finish`.
+
+    Each chunk's crop is copied into host buffers as soon as it is
+    enqueued: page-locked buffers and ``non_blocking`` copies on a card,
+    so nothing here waits for the device after the canvas fetch.
     """
     config = config or StitchConfig()
     fused = config.fused_warp
@@ -233,9 +264,12 @@ def composite_begin(img1, img2, smooth_mesh1: torch.Tensor,
         canvas = dataclasses.replace(canvas, out_h=canvas.out_h // 2 * 2,
                                      out_w=canvas.out_w // 2 * 2)
     oh, ow = canvas.out_h, canvas.out_w
-    offset = torch.tensor([canvas.x_min, canvas.y_min], dtype=torch.float32,
-                          device=device)
-    pending: List[Tuple[torch.Tensor, ...]] = []
+    offset = constant([canvas.x_min, canvas.y_min], torch.float32, device)
+    shapes = ([(T, oh, ow), (T, oh // 2, ow // 2), (T, oh // 2, ow // 2)]
+              if out_format == "yuv420" else [(T, oh, ow, 3)])
+    host = [torch.empty(s, dtype=torch.uint8,
+                        pin_memory=device.type == "cuda") for s in shapes]
+    computed = None
     for s in range(0, T, chunk):
         e = min(s + chunk, T)
         out = composite_chunk(_to_device(img1[s:e], device),
@@ -251,22 +285,40 @@ def composite_begin(img1, img2, smooth_mesh1: torch.Tensor,
             out = bgr_u8_to_yuv420(out)
         if out_format == "yuv420":
             y, u, v = out
-            pending.append((y[:, :oh, :ow], u[:, :oh // 2, :ow // 2],
-                            v[:, :oh // 2, :ow // 2]))
+            crops = (y[:, :oh, :ow], u[:, :oh // 2, :ow // 2],
+                     v[:, :oh // 2, :ow // 2])
         else:
-            pending.append((out[:, :oh, :ow],))
-    return pending, canvas, out_format
+            crops = (out[:, :oh, :ow],)
+        if e == T:
+            computed = _record(device)
+        for h, c in zip(host, crops):
+            h[s:e].copy_(c, non_blocking=True)
+    return PendingComposite(host=host, canvas=canvas, out_format=out_format,
+                            computed=computed, copied=_record(device))
 
 
-def composite_finish(state) -> Tuple[np.ndarray, Canvas]:
-    """Fetch the chunks of :func:`composite_begin`: uint8 BGR frames
-    [T, oh, ow, 3], or packed I420 [T, oh*3//2, ow] for yuv420."""
-    pending, canvas, out_format = state
-    # one contiguous copy per plane: the crops are strided views
-    host = [torch.cat(planes, 0).cpu().numpy() for planes in zip(*pending)]
-    if out_format == "yuv420":
-        return pack_i420_host(*host), canvas
-    return host[0], canvas
+def composite_finish(state: PendingComposite, timer=None
+                     ) -> Tuple[np.ndarray, Canvas]:
+    """Wait for the copies of :func:`composite_begin` and return uint8 BGR
+    frames [T, oh, ow, 3] (a view of the host buffer), or packed I420
+    [T, oh*3//2, ow] for yuv420, packed here on the host.
+
+    ``timer`` (a ``utils.profiling.PhaseTimer``) gets ``warp_fuse``, until
+    the last chunk's compute is done, and ``download``, the copies'
+    remainder, as in the JAX package.
+    """
+    if state.computed is not None:
+        state.computed.synchronize()
+    if timer is not None:
+        timer.mark("warp_fuse", sync=False)
+    if state.copied is not None:
+        state.copied.synchronize()
+    if timer is not None:
+        timer.mark("download", sync=False)
+    host = [h.numpy() for h in state.host]
+    if state.out_format == "yuv420":
+        return pack_i420_host(*host), state.canvas
+    return host[0], state.canvas
 
 
 def composite_video(img1, img2, smooth_mesh1: torch.Tensor,

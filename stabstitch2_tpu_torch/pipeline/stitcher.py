@@ -1,17 +1,25 @@
 """End-to-end two-view stitching (port of ``pipeline/stitcher.py``).
 
 Phases: upload -> spatial motion -> temporal motion -> transport +
-sliding-window smoothing -> composite. The model input is either given
-(``lo``) or made on the device from the frames by :func:`model_input`
-(antialiased bilinear resize, as ``jax.image.resize``), as in the JAX
-package; its I420 upload path is not ported yet.
+sliding-window smoothing -> composite. Frames go up as uint8 BGR or as
+packed I420 (unpacked on the device, ``ops/yuv.py:unpack_i420_u8``). The
+model input is either given (``lo``) or made on the device from the
+frames by :func:`model_input` (antialiased bilinear resize, as
+``jax.image.resize``), as in the JAX package.
+
+:meth:`VideoStitcher.stitch_begin` enqueues a whole video and returns
+without waiting for the device except to fetch the meshes that size the
+canvas (and, with ``sync_phases``, at the phase marks);
+:meth:`VideoStitcher.stitch_finish` collects the frames. Uploads are
+staged in page-locked memory and copied with ``non_blocking=True``; the
+staging buffers live in the pending state until the video is finished.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -20,13 +28,19 @@ import torch.nn.functional as F
 from stabstitch2_tpu_torch.config import MODEL_H, MODEL_W, StitchConfig
 from stabstitch2_tpu_torch.models import SmoothNet, SpatialNet, TemporalNet
 from stabstitch2_tpu_torch.models.backbone import init_weights
-from stabstitch2_tpu_torch.pipeline.compositor import Canvas, composite_video
+from stabstitch2_tpu_torch.ops.yuv import unpack_i420_u8
+from stabstitch2_tpu_torch.pipeline.compositor import (Canvas,
+                                                       PendingComposite,
+                                                       composite_begin,
+                                                       composite_finish)
 from stabstitch2_tpu_torch.pipeline.motion import MotionEstimator
 from stabstitch2_tpu_torch.pipeline.smoothing import smooth_all_windows
 from stabstitch2_tpu_torch.pipeline.transport import (
     stitched_meshes,
     transport_both_views,
 )
+from stabstitch2_tpu_torch.utils.profiling import PhaseTimer, annotate
+from stabstitch2_tpu_torch.utils.transfer import pinned
 
 
 @dataclasses.dataclass
@@ -40,6 +54,17 @@ class StitchResult:
     ms: Dict[str, float] = dataclasses.field(default_factory=dict)
     fps: Dict[str, float] = dataclasses.field(default_factory=dict)
     frame_format: str = "bgr"     # 'bgr' or 'i420' (download_format yuv420)
+
+
+@dataclasses.dataclass
+class _PendingStitch:
+    """A video in flight: composite enqueued, copies draining."""
+
+    composite: PendingComposite
+    smooth: Dict[str, torch.Tensor]
+    timer: PhaseTimer
+    T: int
+    staging: List[torch.Tensor]   # upload buffers, held until finished
 
 
 def model_input(hi: torch.Tensor, mh: int, mw: int) -> torch.Tensor:
@@ -79,6 +104,12 @@ class VideoStitcher:
     model_h: int = MODEL_H
     model_w: int = MODEL_W
     device: torch.device = torch.device("cuda")
+    # True: synchronize at each phase mark, so StitchResult.ms attributes
+    # device time to phases (reference-style). False: enqueue the whole
+    # video without those waits (the phase times become enqueue times),
+    # so stitch_begin returns sooner and overlaps more of the previous
+    # video's finish.
+    sync_phases: bool = True
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -87,77 +118,92 @@ class VideoStitcher:
         self._motion = MotionEstimator(self.spatial_net, self.temporal_net,
                                        chunk=self.chunk)
 
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    @torch.no_grad()
     def stitch_arrays(self, hi1: np.ndarray, lo1: Optional[np.ndarray],
                       hi2: np.ndarray, lo2: Optional[np.ndarray]
                       ) -> StitchResult:
-        """hi*: [T, H, W, 3] BGR; lo*: [T, mh, mw, 3] float32 in [-1, 1],
-        or None to make the model input from hi on the device
-        (:func:`model_input`), which is what the CLI does.
+        """One video, begun and finished: see :meth:`stitch_begin`."""
+        return self.stitch_finish(self.stitch_begin(hi1, lo1, hi2, lo2))
+
+    @torch.no_grad()
+    def stitch_begin(self, hi1: np.ndarray, lo1: Optional[np.ndarray],
+                     hi2: np.ndarray, lo2: Optional[np.ndarray]
+                     ) -> _PendingStitch:
+        """Enqueue one video's whole pipeline; return its pending state.
+
+        hi*: [T, H, W, 3] BGR, or packed I420 [T, H*3//2, W] uint8 (1.5
+        bytes per pixel, ``data/video_io.py:bgr_to_i420``), unpacked on
+        the device; lo*: [T, mh, mw, 3] float32 in [-1, 1], or None to
+        make the model input from hi on the device (:func:`model_input`),
+        which is what the CLI does.
 
         As in the JAX package: without both lo, hi is uploaded as uint8;
         with both, hi keeps its dtype, so float 0..255 frames take the
-        float composite route.
+        float composite route. Call :meth:`stitch_finish` to collect the
+        frames; a caller may begin the next video first.
         """
         T = hi1.shape[0]
         window = self.config.window
         if T < window:
             raise ValueError(f"video too short: {T} < window {window}")
-        ms: Dict[str, float] = {}
-        t0 = t = time.perf_counter()
-
-        def mark(name):
-            nonlocal t
-            self._sync()
-            now = time.perf_counter()
-            ms[name] = (now - t) * 1e3
-            t = now
-
+        timer = PhaseTimer(T, self.device if self.sync_phases else None)
         given = lo1 is not None and lo2 is not None
+        staging: List[torch.Tensor] = []
 
-        def upload(hi):
+        def upload(x: np.ndarray, dtype) -> torch.Tensor:
+            host = pinned(np.ascontiguousarray(x, dtype), self.device)
+            staging.append(host)
+            return host.to(self.device, non_blocking=True)
+
+        def frames(hi: np.ndarray) -> torch.Tensor:
             # uint8 unless both lo are given; then float frames stay float
             # (float32: the JAX package's arrays are float32 at most)
             keep = given and hi.dtype != np.uint8
-            return torch.from_numpy(np.ascontiguousarray(
-                hi, np.float32 if keep else np.uint8)).to(self.device)
+            h = upload(hi, np.float32 if keep else np.uint8)
+            return unpack_i420_u8(h) if h.dim() == 3 else h
 
-        h1, h2 = upload(hi1), upload(hi2)
-        if given:
-            l1, l2 = (torch.from_numpy(np.ascontiguousarray(lo, np.float32))
-                      .to(self.device) for lo in (lo1, lo2))
-        else:
-            l1, l2 = (model_input(h, self.model_h, self.model_w)
-                      for h in (h1, h2))
-        mark("upload")
-        smotion1, smotion2 = self._motion.spatial(l1, l2)
-        mark("spatial")
-        tmotion1, tmotion2 = self._motion.temporal_pair(l1, l2)
-        mark("temporal")
         mh, mw = self.model_h, self.model_w
-        ts1, ts2 = transport_both_views(tmotion1, smotion1, tmotion2, smotion2,
-                                        mh, mw)
-        smooth = smooth_all_windows(self.smooth_net,
-                                    stitched_meshes(smotion1, mh, mw),
-                                    stitched_meshes(smotion2, mh, mw),
-                                    ts1, ts2, window=window)
-        mark("smooth")
-        frames, canvas = composite_video(h1, h2, smooth["smooth_mesh1"],
-                                         smooth["smooth_mesh2"],
-                                         config=self.config, chunk=self.chunk,
-                                         model_size=(mh, mw))
-        mark("composite")
-        total = time.perf_counter() - t0
+        with annotate("upload"):
+            h1, h2 = frames(hi1), frames(hi2)
+            if given:
+                l1, l2 = upload(lo1, np.float32), upload(lo2, np.float32)
+            else:
+                l1, l2 = model_input(h1, mh, mw), model_input(h2, mh, mw)
+        timer.mark("upload")
+        with annotate("spatial"):
+            smotion1, smotion2 = self._motion.spatial(l1, l2)
+        timer.mark("spatial")
+        with annotate("temporal"):
+            tmotion1, tmotion2 = self._motion.temporal_pair(l1, l2)
+        timer.mark("temporal")
+        with annotate("smooth"):
+            ts1, ts2 = transport_both_views(tmotion1, smotion1, tmotion2,
+                                            smotion2, mh, mw)
+            smooth = smooth_all_windows(self.smooth_net,
+                                        stitched_meshes(smotion1, mh, mw),
+                                        stitched_meshes(smotion2, mh, mw),
+                                        ts1, ts2, window=window)
+        timer.mark("smooth")
+        with annotate("composite"):
+            state = composite_begin(h1, h2, smooth["smooth_mesh1"],
+                                    smooth["smooth_mesh2"],
+                                    config=self.config, chunk=self.chunk,
+                                    model_size=(mh, mw))
+        return _PendingStitch(composite=state, smooth=smooth, timer=timer,
+                              T=T, staging=staging)
+
+    def stitch_finish(self, pending: _PendingStitch) -> StitchResult:
+        """Collect the frames enqueued by :meth:`stitch_begin`."""
+        timer = pending.timer
+        frames, canvas = composite_finish(pending.composite, timer=timer)
+        timer.fps["composite"] = pending.T / max(
+            time.perf_counter() - timer.t0, 1e-9)
+        smooth = pending.smooth
         return StitchResult(frames=frames, canvas=canvas,
                             smooth_mesh1=smooth["smooth_mesh1"],
                             smooth_mesh2=smooth["smooth_mesh2"],
                             ori_mesh1=smooth["ori_mesh1"],
-                            ori_mesh2=smooth["ori_mesh2"], ms=ms,
-                            fps={"total": T / max(total, 1e-9)},
+                            ori_mesh2=smooth["ori_mesh2"], ms=timer.ms,
+                            fps=timer.fps,
                             frame_format=("i420" if self.config.download_format
                                           == "yuv420" else "bgr"))
 
@@ -182,8 +228,18 @@ class VideoStitcher:
 
 def init_stitcher(rng_seed: int = 0, config: Optional[StitchConfig] = None,
                   model_h: int = MODEL_H, model_w: int = MODEL_W,
-                  chunk: int = 8, device="cuda") -> VideoStitcher:
+                  chunk: int = 8, compute_dtype: Optional[torch.dtype] = None,
+                  smooth_dtype: Optional[torch.dtype] = None,
+                  device="cuda") -> VideoStitcher:
     """A stitcher with random float32 weights drawn from ``rng_seed``.
+
+    ``compute_dtype`` runs the spatial and temporal trunks and heads in
+    that dtype; None means bfloat16, the JAX package's inference default.
+    Pass ``torch.float32`` for float32 parity runs. ``smooth_dtype`` is
+    SmoothNet's; None keeps it float32, as the JAX package does (its
+    inputs are absolute mesh coordinates, ~480 px, which bfloat16 would
+    quantize to ~2 px). Parameters stay float32 and the geometry runs in
+    float32 regardless.
 
     The weights are drawn on the CPU from one ``torch.Generator``, so every
     device gets the same values. Raises if ``device`` is 'cuda' and no card
@@ -191,8 +247,10 @@ def init_stitcher(rng_seed: int = 0, config: Optional[StitchConfig] = None,
     """
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(rng_seed)
-    nets = (SpatialNet(model_h, model_w), TemporalNet(model_h, model_w),
-            SmoothNet())
+    dt = compute_dtype or torch.bfloat16
+    nets = (SpatialNet(model_h, model_w, compute_dtype=dt),
+            TemporalNet(model_h, model_w, compute_dtype=dt),
+            SmoothNet(smooth_dtype or torch.float32))
     for net in nets:
         init_weights(net, gen)
     return VideoStitcher(*nets, config=config or StitchConfig(), chunk=chunk,

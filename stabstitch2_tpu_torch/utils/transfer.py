@@ -1,0 +1,32 @@
+"""Host-to-device copies that do not block the host.
+
+A copy from pageable host memory to the card waits for the stream, and so
+for all the device work queued before it: a small constant made with
+``torch.tensor(..., device='cuda')`` in the middle of a video's enqueue
+would wait for the previous video. These helpers stage the data in
+page-locked memory and copy with ``non_blocking=True``. PyTorch's caching
+host allocator records the copy on its stream and reuses a staging block
+only after the copy has completed; on the CPU nothing is staged.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def pinned(x, device) -> torch.Tensor:
+    """``x`` (numpy array or CPU tensor) as a host tensor to copy to
+    ``device``: page-locked when ``device`` is a card, else ``x`` itself."""
+    t = torch.as_tensor(x)
+    return t.pin_memory() if torch.device(device).type == "cuda" else t
+
+
+def to_device(x, device) -> torch.Tensor:
+    """Copy ``x`` to ``device`` without blocking the host."""
+    return pinned(x, device).to(device, non_blocking=True)
+
+
+def constant(data, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.tensor(data, dtype=dtype, device=device)`` without blocking
+    the host."""
+    return to_device(torch.tensor(data, dtype=dtype), device or "cpu")

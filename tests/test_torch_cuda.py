@@ -275,3 +275,87 @@ def test_composite_routes_card_vs_cpu(cuda_device, cfg):
     assert card.shape == cpu.shape and card.max() > 10
     d = np.abs(card.astype(np.int16) - cpu.astype(np.int16))
     assert (d > 0).mean() <= 1e-2 and (d > 1).mean() <= 1e-4, d.max()
+
+
+def test_pinned_downloads_equal_the_blocking_path(cuda_device):
+    """composite_begin's non-blocking copies into page-locked buffers give
+    the frames a blocking ``.cpu()`` of each chunk's crop gives."""
+    from stabstitch2_tpu_torch.data.video_io import pack_i420_host
+    from stabstitch2_tpu_torch.pipeline import compositor
+
+    rng = np.random.default_rng(8)
+    T, H, W = 5, 96, 144
+    i1, i2 = (rng.integers(0, 255, (T, H, W, 3), dtype=np.uint8)
+              for _ in range(2))
+    base = np.stack(np.meshgrid(np.linspace(0.0, W, 9),
+                                np.linspace(0.0, H, 7)), -1)[None]
+    m1, m2 = (torch.from_numpy((base + rng.normal(0, 2, (T, 7, 9, 2)) + s)
+                               .astype(np.float32)).to(cuda_device)
+              for s in (0.0, 25.0))
+    for fmt in ("bgr", "yuv420"):
+        config = StitchConfig(canvas_bucket=32, download_format=fmt)
+        state = compositor.composite_begin(i1, i2, m1, m2, config=config,
+                                           chunk=2, model_size=(H, W))
+        assert all(h.is_pinned() for h in state.host)
+        got, canvas = compositor.composite_finish(state)
+        oh, ow = canvas.out_h, canvas.out_w
+        offset = torch.tensor([canvas.x_min, canvas.y_min],
+                              device=cuda_device)
+        full = compositor.compute_canvas(m1, m2, 32)   # before the even crop
+        span = (np.float32(full.out_h), np.float32(full.out_w))
+        parts = []
+        for s in range(0, T, 2):
+            out = compositor.composite_chunk(
+                torch.from_numpy(i1[s:s + 2]).to(cuda_device),
+                torch.from_numpy(i2[s:s + 2]).to(cuda_device),
+                m1[s:s + 2], m2[s:s + 2], offset,
+                (canvas.pad_h, canvas.pad_w), "AVERAGE", span,
+                out_format=fmt)
+            if fmt == "yuv420":
+                y, u, v = (p.cpu().numpy() for p in out)
+                parts.append(pack_i420_host(y[:, :oh, :ow],
+                                            u[:, :oh // 2, :ow // 2],
+                                            v[:, :oh // 2, :ow // 2]))
+            else:
+                parts.append(out[:, :oh, :ow].cpu().numpy())
+        np.testing.assert_array_equal(got, np.concatenate(parts, 0))
+
+
+def test_begun_video_survives_the_next_begin(cuda_device):
+    """Two videos begun before either is finished (the CLI's two-deep
+    loop): each keeps its staged uploads and its host buffers, and each
+    gives the frames of its own stitch_arrays, bit for bit."""
+    from stabstitch2_tpu_torch.data.video_io import bgr_to_i420
+    from synthetic import make_two_view_clip
+
+    st = init_stitcher(0, StitchConfig(download_format="yuv420"), model_h=128,
+                       model_w=160, chunk=4, device=cuda_device)
+    clips = [tuple(bgr_to_i420(v) for v in
+                   make_two_view_clip(num_frames=8, height=128, width=160,
+                                      overlap=0.6, shake_px=2.0, seed=s))
+             for s in (5, 6)]
+    refs = [st.stitch_arrays(a, None, b, None) for a, b in clips]
+    pending = [st.stitch_begin(a, None, b, None) for a, b in clips]
+    assert all(h.is_pinned() for p in pending for h in p.staging)
+    for p, ref in zip(pending, refs):
+        res = st.stitch_finish(p)
+        np.testing.assert_array_equal(res.frames, ref.frames)
+        torch.testing.assert_close(res.smooth_mesh1, ref.smooth_mesh1,
+                                   atol=0, rtol=0)
+
+
+def test_bf16_meshes_within_the_cpu_bound(cuda_device):
+    """bf16 against float32 trunks on the card, on the seed-0 model and
+    the clip of tests/test_torch_entry.py's bound (2 x 0.0702 px, twice
+    the JAX package's gap on the CPU)."""
+    from synthetic import make_two_view_clip
+
+    v1, v2 = make_two_view_clip(8, 360, 480, overlap=0.6, shake_px=2.0,
+                                seed=5)
+    runs = [init_stitcher(0, StitchConfig(canvas_bucket=32), chunk=4,
+                          compute_dtype=dt, device=cuda_device)
+            .stitch_arrays(v1, None, v2, None)
+            for dt in (torch.float32, None)]
+    gap = max(float((getattr(runs[0], k) - getattr(runs[1], k)).abs().max())
+              for k in ("smooth_mesh1", "smooth_mesh2"))
+    assert 0 < gap <= 2 * 0.0702, gap

@@ -70,7 +70,7 @@ def run():
         config=js.config, chunk=CHUNK, model_size=(MH, MW), pallas_fused=True))
     tonp = lambda v: jax.tree_util.tree_map(np.asarray, v)  # noqa: E731
     st = init_stitcher(0, StitchConfig(canvas_bucket=BUCKET), MH, MW, CHUNK,
-                       device="cpu")
+                       compute_dtype=torch.float32, device="cpu")
     sds = from_jax_params(tonp(js.spatial_vars), tonp(js.temporal_vars),
                           tonp(js.smooth_vars))
     for net, sd in zip((st.spatial_net, st.temporal_net, st.smooth_net), sds):
@@ -207,6 +207,8 @@ class TestModelInput:
         assert_frames_close(got.frames, np.asarray(ref.frames))
 
     def test_cli_stitch_passes_no_model_input(self, tmp_path, monkeypatch):
+        """The CLI hands the frames as uint8, packed I420 by default, with
+        no model input: the device makes it, as in the JAX CLI."""
         write_clip_dirs(str(tmp_path / "data"), num_frames=7, height=96,
                         width=120, seed=1)
         seen = []
@@ -215,12 +217,12 @@ class TestModelInput:
             seen.append((hi1.shape, hi1.dtype, lo1, lo2))
             raise ValueError("recorded")
 
-        monkeypatch.setattr(VideoStitcher, "stitch_arrays", record)
+        monkeypatch.setattr(VideoStitcher, "stitch_begin", record)
         rc = cli.main(["stitch", "--test_path", str(tmp_path / "data"),
                        "--output_path", str(tmp_path / "out"),
                        "--device", "cpu"])
         assert rc == 1
-        assert seen == [((7, 96, 120, 3), np.uint8, None, None)]
+        assert seen == [((7, 144, 120), np.uint8, None, None)]
 
 
 def _imports(path: pathlib.Path):
