@@ -76,6 +76,32 @@ Phases, each printing one JSON line with its seconds:
    meshes with AVERAGE and with LINEAR fusion (LINEAR reads K2's coverage
    masks).
 
+10. ``online``: ``OnlineStitcher.push`` over 48 frames at 360x480 at the
+    defaults (bf16, route A), one pair at a time, counted; per-push host
+    ms, waits and launches; gates on the emissions, one wait per steady
+    push, the i420 emission against the converted bgr one, and float32
+    online against batch and route A against route B (``phase_online``).
+11. ``multi``: ``stitch_multi_begin``/``finish`` on a 3-view clip of 16
+    frames at 360x480 at the CLI's defaults, counted, then ``cli
+    stitch-multi``; gates on the frames, the mp4, float32 route A against
+    route B and the chain's junctions on the card against the CPU, which
+    must also see a planted fault (bfloat16 pair meshes)
+    (``phase_multi``).
+12. ``metric``: ``evaluate_video`` on 16 frames at 360x480 with the
+    ``metric`` command's stitcher, counted (K3 warps the float views),
+    then ``cli metric --out_json``; gates on the launches, float32
+    metrics on the card against the CPU and the report
+    (``phase_metric``).
+
+Phases 10-12 also hold every kernel that their path runs against its
+plain version on the card, on the inputs that path gave it (the latest
+call at each of up to HELD_PER_KERNEL shapes, ``PathInputs``): K2 and K3
+exactly, K1 and K4 within the kernels phase's tolerances. The
+``max_abs_err`` of the kernels line is the largest over the kernels phase
+and these paths. The kernels phase also times K4 and ``F.grid_sample`` in
+turns, with the host's issue time and the L2 flushed
+(``k4_in_turns``).
+
 Then one line ``{"kernels": [...]}``, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the
 script exits nonzero without that last line. It exits nonzero before
@@ -86,6 +112,7 @@ missing.
 from __future__ import annotations
 
 import collections
+import contextlib
 import glob
 import json
 import os
@@ -101,6 +128,8 @@ CLI_VIDEOS = 4       # the cli phase's dataset: videos of CLI_FRAMES frames
 CLI_FRAMES = 48
 CLI_ROUNDS = 2       # pipelined and sequential runs, in turns
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+L2_BYTES = 50 * 2 ** 20        # H100 SXM L2 cache
+K4_ROUNDS = 20       # rounds of K4 and F.grid_sample timed in turns
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 
 # tolerances (see the docstrings of the checks below)
@@ -129,6 +158,26 @@ extern "C" __global__ void log_core_probe(const float* x, float* y) {
 # SASS opcodes that run on the float32 units; FFMA counts two operations
 FP32_OPCODES = ("FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSETP", "FSET",
                 "MUFU", "I2F", "I2FP", "FCHK", "FRND")
+# the online, multi and metric phases: frames of the model's size
+FRAME_HW = (360, 480)
+ONLINE_FRAMES = 48
+TRACE_PUSHES = 8     # steady pushes in the online phase's trace
+MULTI_FRAMES = 16
+METRIC_FRAMES = 16
+# float32 online against batch smooth meshes: the JAX package's
+# tests/test_online_mode.py bound (atol 5e-3 px)
+ONLINE_MESH_ATOL_PX = 5e-3
+# the chain's junction algebra on the card against the CPU on the same
+# pair meshes at 360x480: 2.4x the sound gap (8.3e-4 px in every run, the
+# same seeded inputs), far below the gap of a planted fault (the pair
+# meshes rounded through bfloat16), which phase_multi also reads
+CHAIN_ATOL_PX = 2e-3
+# the path phases hold each kernel against its plain version on the inputs
+# of its calls on that path, at most this many distinct shapes
+HELD_PER_KERNEL = 3
+# float32 metrics on the card against the CPU: the bound of
+# tests/test_torch_metrics.py for the bgr upload against JAX
+METRIC_RTOL = 1e-4
 FRAC_DIFF = 1e-2
 FRAC_DIFF_GT1 = 1e-4
 # bf16 against float32 trunks, smooth meshes of the seed-0 random model at
@@ -503,6 +552,11 @@ def k4_entry(st, res, clip, launches):
     library_ms = time_ms(lambda: F.grid_sample(
         img, grid, mode="bilinear", padding_mode="zeros",
         align_corners=False), 50)
+    turns = k4_in_turns(
+        lambda: patch_gather_cuda.bilinear_sample_patch_u8_cuda(
+            im, x, y, size),
+        lambda: F.grid_sample(img, grid, mode="bilinear",
+                              padding_mode="zeros", align_corners=False))
     return {"name": "patch_gather", "route": "cuda",
             "source": "stabstitch2_tpu_torch/csrc/patch_gather.cu",
             "replaces": "stabstitch2_tpu/ops/pallas_gather.py:72",
@@ -517,7 +571,63 @@ def k4_entry(st, res, clip, launches):
             "max_abs_err_by_layout": errs, "dead_nonzero": dead,
             "atol": GATHER_ATOL, "images": B2, "source_hw": [int(H), int(W)],
             "canvas_hw": list(size), "live_frac": n_live / npix,
-            "bytes": nbytes, "ops": ops, "roofline_share": bms / ms}
+            "bytes": nbytes, "ops": ops, "roofline_share": bms / ms,
+            "in_turns_with_grid_sample": turns}
+
+
+def k4_in_turns(k4, library, rounds: int = K4_ROUNDS, iters: int = 50):
+    """K4 and F.grid_sample timed in turns, ``rounds`` times, three ways:
+    ``as_timed`` as ``time_ms`` times them (CUDA events around ``iters``
+    calls issued from the host, so a host slower than the kernel shows in
+    the time); ``queued``, the same calls issued while the card sleeps
+    first, so the events see the device time alone; ``l2_flushed``, one
+    queued call after writing a buffer twice the L2's size. Also the
+    host's milliseconds to issue one call. Each as median, min and max
+    over the rounds."""
+    import numpy as np
+    import torch
+
+    flush = torch.empty(2 * L2_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    # a sleep longer than issuing `iters` calls takes the host (~0.1 ms each)
+    sleep_cycles = int(2e9 * iters * 1e-4 * 4)
+
+    def events(fn, n, sleep, flush_first):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        if flush_first:
+            flush.zero_()
+        if sleep:
+            torch.cuda._sleep(sleep_cycles)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host = (time.perf_counter() - t0) * 1e3 / n
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / n, host
+
+    fns = {"patch_gather": k4, "grid_sample": library}
+    runs = {(k, m): [] for k in fns
+            for m in ("as_timed", "queued", "l2_flushed", "host_issue")}
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            ms, host = events(fn, iters, False, False)
+            runs[k, "as_timed"].append(ms)
+            runs[k, "host_issue"].append(host)
+            runs[k, "queued"].append(events(fn, iters, True, False)[0])
+            runs[k, "l2_flushed"].append(events(fn, 1, True, True)[0])
+
+    def stat(v):
+        return {"median": float(np.median(v)), "min": float(min(v)),
+                "max": float(max(v))}
+
+    return {"rounds": rounds, "iters": iters,
+            **{f"{k}_{m}_ms": stat(v) for (k, m), v in runs.items()}}
 
 
 def plain_fused_yuv420(st, res, clip):
@@ -932,14 +1042,24 @@ def phase_trace(st, videos, tmp):
                                 trace_dir=d)
     files = sorted(glob.glob(os.path.join(d, "*.json")))
     require(done == 1 and len(files) == 1, f"one trace file: {files}")
-    with open(files[0]) as f:
+    stats, names = trace_stats(files[0])
+    for k in ("cost_volume", "fused_warp"):
+        require(any(k in n for n in names), f"trace names a {k} kernel")
+    return {"phase": "trace", **stats}
+
+
+def trace_stats(path):
+    """A Chrome trace's window, the card's busy time and idle share in it
+    (1 - the union of kernel and copy intervals over the window), the 5
+    device operations that took the most time and the most launched, and
+    the most frequent host-side ATen operations (count, inclusive ms);
+    and the set of kernel names."""
+    with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X" and "dur" in e]
     dev = [e for e in events
            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     names = {e["name"] for e in dev if e["cat"] == "kernel"}
-    for k in ("cost_volume", "fused_warp"):
-        require(any(k in n for n in names), f"trace names a {k} kernel")
     t0 = min(e["ts"] for e in events)
     t1 = max(e["ts"] + e["dur"] for e in events)
     busy, end = 0.0, t0
@@ -958,7 +1078,7 @@ def phase_trace(st, videos, tmp):
         op_n[e["name"]] += 1
         op_us[e["name"]] += e["dur"]
     window_ms = (t1 - t0) / 1e3
-    return {"phase": "trace", "file_bytes": os.path.getsize(files[0]),
+    return {"file_bytes": os.path.getsize(path),
             "window_ms": window_ms, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / (t1 - t0),
             "kernels": len([e for e in dev if e["cat"] == "kernel"]),
@@ -971,7 +1091,519 @@ def phase_trace(st, videos, tmp):
             "top5_device_launches": launches.most_common(5),
             "cpu_ops": len(ops),
             "top8_cpu_ops_by_count": [[n, c, op_us[n] / 1e3]
-                                      for n, c in op_n.most_common(8)]}
+                                      for n, c in op_n.most_common(8)]}, names
+
+
+def stream(online, v1, v2):
+    """Push a clip pair by pair: (per-push counts, emitted frames)."""
+    counts, frames = [], []
+    for a, b in zip(v1, v2):
+        out = online.push(a, b)
+        counts.append(len(out))
+        frames += out
+    return counts, frames
+
+
+def yuv_of_bgr_on_canvas(st, v1, v2):
+    """An i420 stream, and the conversion on the card of a bgr stream
+    composited on the i420 stream's first canvas: (i420 frames, packed
+    conversion, both streams' re-anchor pushes)."""
+    import numpy as np
+    import torch
+
+    from stabstitch2_tpu_torch.data.video_io import pack_i420_host
+    from stabstitch2_tpu_torch.ops.yuv import bgr_u8_to_yuv420
+    from stabstitch2_tpu_torch.pipeline.online import OnlineStitcher
+
+    oy = OnlineStitcher(st, emit_format="i420")
+    yuv, first = [], None
+    for a, b in zip(v1, v2):
+        yuv += oy.push(a, b)
+        if first is None and oy.canvas is not None:
+            first = oy.canvas
+    ob = OnlineStitcher(st)
+    ob._set_canvas(first)
+    _, bgr = stream(ob, v1, v2)
+    conv = bgr_u8_to_yuv420(torch.from_numpy(np.stack(bgr)).to(st.device))
+    want = pack_i420_host(*(p.cpu().numpy() for p in conv))
+    return np.stack(yuv), want, (oy.reanchor_frames, ob.reanchor_frames)
+
+
+def kernel_wrappers():
+    """Per kernel: the module that defines its wrapper, the wrapper's name,
+    the modules that bound the wrapper by name at import, its plain
+    version, and the tolerance of the wrapper against the plain version
+    as a function of the plain result's largest magnitude (that of the
+    kernels phase: 0 for the spline kernels K2 and K3)."""
+    from stabstitch2_tpu_torch.models import spatial, temporal
+    from stabstitch2_tpu_torch.ops import (corr_cuda, fused_warp_cuda,
+                                           patch_gather_cuda, tps_coords_cuda)
+    from stabstitch2_tpu_torch.pipeline import compositor
+
+    return {
+        "cost_volume": (corr_cuda, "cost_volume_cuda", (spatial, temporal),
+                        corr_cuda.cost_volume_plain,
+                        lambda amax: CV_ATOL + 1e-5 * amax),
+        "fused_warp": (fused_warp_cuda, "fused_warp_planes", (),
+                       fused_warp_cuda.fused_warp_planes_plain,
+                       lambda amax: 0.0),
+        "tps_coords": (tps_coords_cuda, "tps_coords", (),
+                       tps_coords_cuda.tps_coords_plain, lambda amax: 0.0),
+        "patch_gather": (patch_gather_cuda, "bilinear_sample_patch_u8_cuda",
+                         (compositor,), patch_gather_cuda.patch_gather_plain,
+                         lambda amax: GATHER_ATOL),
+    }
+
+
+class PathInputs:
+    """The inputs of a path's kernel calls, so that each kernel can be held
+    against its plain version at the shapes that path gives it.
+
+    Inside :meth:`recording` every kernel wrapper is replaced by one that
+    keeps a copy (on the card) of the arguments of its latest call at each
+    distinct signature (tensor shapes and dtypes and the other arguments,
+    the spline's normalization span aside), for at most HELD_PER_KERNEL
+    signatures, and then calls the wrapper. The latest, not the first: a
+    stream's first temporal cost volume reads all-zero features. :meth:`hold` runs each kept call through the
+    wrapper and the plain version on the same card tensors; the launches
+    it makes are taken off the wrapper's count again."""
+
+    def __init__(self):
+        self.calls = collections.defaultdict(dict)
+
+    @staticmethod
+    def _key(args, kwargs):
+        import torch
+
+        def k(x):
+            return ((tuple(x.shape), str(x.dtype)) if torch.is_tensor(x)
+                    else repr(x))
+
+        return (tuple(k(x) for x in args)
+                + tuple((n, k(v)) for n, v in sorted(kwargs.items())
+                        if n != "grid_span"))
+
+    @contextlib.contextmanager
+    def recording(self):
+        import torch
+
+        def copy(x):
+            return x.clone() if torch.is_tensor(x) else x
+
+        saved = []
+        for name, (mod, attr, users, _, _) in kernel_wrappers().items():
+            def tapped(*args, _name=name, _wrapper=getattr(mod, attr),
+                       **kwargs):
+                seen = self.calls[_name]
+                key = self._key(args, kwargs)
+                if key in seen or len(seen) < HELD_PER_KERNEL:
+                    seen[key] = ([copy(x) for x in args],
+                                 {n: copy(v) for n, v in kwargs.items()})
+                return _wrapper(*args, **kwargs)
+
+            for m in (mod, *users):
+                saved.append((m, attr, getattr(m, attr)))
+                setattr(m, attr, tapped)
+        try:
+            yield self
+        finally:
+            for m, attr, f in reversed(saved):
+                setattr(m, attr, f)
+
+    def hold(self, names, path: str) -> dict:
+        """Per kernel in ``names``: one row per kept call, its input shapes,
+        max|wrapper - plain| and the tolerance; raises past it, or if the
+        path made no call of the kernel."""
+        import torch
+
+        wrappers = kernel_wrappers()
+        out = {}
+        for name in names:
+            mod, attr, _, plain, tol = wrappers[name]
+            kept = self.calls.get(name)
+            require(bool(kept), f"{path}: a call of {name} was recorded")
+            launches = collections.Counter(mod.LAUNCHES)
+            rows = []
+            for args, kwargs in kept.values():
+                got = getattr(mod, attr)(*args, **kwargs)
+                ref = plain(*args, **kwargs)
+                torch.cuda.synchronize()
+                got = got if isinstance(got, tuple) else (got,)
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                err, amax = 0.0, 0.0
+                for g, r in zip(got, ref):
+                    if g.dtype == torch.bool:
+                        require(torch.equal(g, r), f"{path}: {name} flags")
+                    elif g.numel():
+                        err = max(err, float((g - r).abs().max()))
+                        amax = max(amax, float(r.abs().max()))
+                shapes = [list(x.shape) for x in args if torch.is_tensor(x)]
+                rows.append({"shapes": shapes, "max_abs_err": err,
+                             "atol": tol(amax)})
+                require(err <= tol(amax),
+                        f"{path}: {name} at {shapes}: max|d| {err} vs plain "
+                        f"on the path's inputs (atol {tol(amax)})")
+            mod.LAUNCHES.clear()
+            mod.LAUNCHES.update(launches)
+            out[name] = rows
+        return out
+
+
+def phase_online(device, tmp):
+    """``OnlineStitcher.push`` over a 48-frame clip at 360x480, one pair at
+    a time, at the defaults (bf16 trunks, route A, bgr), after a warm-up
+    stream; the launch counts are set to 0 just before and read just
+    after. Per push: host ms around ``push``, emitted frames, the
+    stitcher's waits for the card (each on an event after page-locked
+    copies) and the waits ``set_sync_debug_mode("warn")`` reports (a wait
+    the design does not make). Gates: emissions [0]*6 + [7] + [1]*41; one
+    wait per steady push and none reported by the debug mode; the i420
+    emission equals the conversion on the card of the bgr emission on the
+    same canvas (route B, which chains the conversion: exactly; route A,
+    which converts the float fusion: within one level); a trace of
+    TRACE_PUSHES steady pushes names K1 and K2 (the card's idle share of
+    its window is reported); with float32
+    trunks the last window's smooth meshes lie within ONLINE_MESH_ATOL_PX
+    of ``stitch_arrays``' and route A's frames equal route B's. K1 and K2
+    (the burst's and a steady push's shapes, from the warm-up) and K3 and
+    K4 (route B's stream) are held against their plain versions on those
+    inputs."""
+    import dataclasses
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from stabstitch2_tpu_torch.config import StitchConfig
+    from stabstitch2_tpu_torch.ops import (corr_cuda, fused_warp_cuda,
+                                           patch_gather_cuda, tps_coords_cuda)
+    from stabstitch2_tpu_torch.pipeline.online import OnlineStitcher
+    from stabstitch2_tpu_torch.pipeline.stitcher import init_stitcher
+    from stabstitch2_tpu_torch.utils.profiling import trace
+    from synthetic import make_two_view_clip
+
+    n = ONLINE_FRAMES
+    v1, v2 = make_two_view_clip(num_frames=n, height=FRAME_HW[0],
+                                width=FRAME_HW[1], overlap=0.5, shake_px=4.0,
+                                seed=2)
+    st = init_stitcher(rng_seed=0, device=device)      # bf16, route A
+    held = PathInputs()
+    with held.recording():      # the burst's and a steady push's inputs
+        stream(OnlineStitcher(st), v1[:9], v2[:9])      # warm-up
+    torch.cuda.synchronize()
+    o = OnlineStitcher(st)
+    corr_cuda.LAUNCHES.clear()
+    fused_warp_cuda.LAUNCHES.clear()
+
+    def counts():
+        return np.array([corr_cuda.LAUNCHES[5], corr_cuda.LAUNCHES[3],
+                         fused_warp_cuda.LAUNCHES["fused_warp"]])
+
+    ms, emitted, waits, hidden, per_push = [], [], [], [], []
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        for a, b in zip(v1, v2):
+            c0, w0 = counts(), o.waits
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                out = o.push(a, b)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            hidden.append(sum("called a synchronizing" in str(w.message)
+                              for w in caught))
+            waits.append(o.waits - w0)
+            emitted.append(len(out))
+            per_push.append((counts() - c0).tolist())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    total = counts()
+    launches = {"cost_volume_r5": int(total[0]),
+                "cost_volume_r3": int(total[1]),
+                "fused_warp": int(total[2])}
+    require(all(v > 0 for v in launches.values()),
+            f"K1 and K2 launched on the online path: {launches}")
+    want = [0] * 6 + [7] + [1] * (n - 7)
+    require(emitted == want, f"emissions per push {emitted}")
+    steady = range(7, n)
+    require(all(waits[i] == 1 and hidden[i] == 0 for i in steady),
+            f"one wait per steady push: waits {waits}, reported {hidden}")
+    require(sum(hidden) == 0, f"waits the debug mode reports: {hidden}")
+    # a Chrome trace of TRACE_PUSHES steady pushes of a fresh stream
+    d = os.path.join(tmp, "online_trace")
+    o_tr = OnlineStitcher(st)
+    stream(o_tr, v1[:8], v2[:8])
+    with trace(d):
+        stream(o_tr, v1[8:8 + TRACE_PUSHES], v2[8:8 + TRACE_PUSHES])
+    files = sorted(glob.glob(os.path.join(d, "*.json")))
+    require(len(files) == 1, f"one online trace file: {files}")
+    traced, names = trace_stats(files[0])
+    for k in ("cost_volume", "fused_warp"):
+        require(any(k in x for x in names), f"online trace names a {k} kernel")
+
+    yuv_a, conv_a, re_a = yuv_of_bgr_on_canvas(st, v1, v2)
+    st_b = dataclasses.replace(st, config=StitchConfig(fused_warp=False))
+    yuv_b, conv_b, re_b = yuv_of_bgr_on_canvas(st_b, v1, v2)
+    for re in (re_a, re_b):
+        require(re[0] == re[1], f"i420 and bgr streams re-anchor alike: {re}")
+    d_a, d_b = frame_diff(yuv_a, conv_a), frame_diff(yuv_b, conv_b)
+    require(d_b["max"] == 0, f"route B i420 vs converted bgr: {d_b}")
+    require(d_a["max"] <= 1, f"route A i420 vs converted bgr: {d_a}")
+
+    st32 = init_stitcher(rng_seed=0, compute_dtype=torch.float32,
+                         device=device)
+    o32 = OnlineStitcher(st32)
+    _, f_a = stream(o32, v1, v2)
+    batch = st32.stitch_arrays(v1, None, v2, None)
+    gap = max(float((o32.window_smooth[k][-1] - m[-1]).abs().max())
+              for k, m in enumerate((batch.smooth_mesh1, batch.smooth_mesh2)))
+    require(gap <= ONLINE_MESH_ATOL_PX,
+            f"online vs batch float32 smooth meshes {gap} px")
+    tps_coords_cuda.LAUNCHES.clear()
+    patch_gather_cuda.LAUNCHES.clear()
+    with held.recording():
+        _, f_b = stream(OnlineStitcher(dataclasses.replace(
+            st32, config=StitchConfig(fused_warp=False))), v1, v2)
+    gather = {"tps_coords": tps_coords_cuda.LAUNCHES["tps_coords"],
+              "patch_gather": patch_gather_cuda.LAUNCHES["patch_gather"]}
+    require(all(v > 0 for v in gather.values()),
+            f"route B launched K3 and K4: {gather}")
+    ab = frame_diff(np.stack(f_a), np.stack(f_b))
+    require(ab["max"] == 0, f"online route A vs route B float32: {ab}")
+    plain = held.hold(("cost_volume", "fused_warp", "tps_coords",
+                       "patch_gather"), "online")
+    steady_ms = [ms[i] for i in steady]
+    return {"phase": "online", "frames": n, "frame_hw": list(FRAME_HW),
+            "compute_dtype": "bfloat16", "route": "A (K2)",
+            "canvas_hw": [o.canvas.out_h, o.canvas.out_w],
+            "reanchor_frames": o.reanchor_frames,
+            "first_window_burst_ms": ms[6],
+            "steady_push_ms_median": float(np.median(steady_ms)),
+            "steady_push_ms_p90": float(np.percentile(steady_ms, 90)),
+            "first_pushes_ms": ms[:6], "push_ms": ms,
+            "emitted_per_push": emitted, "waits_per_push": waits,
+            "debug_mode_waits_per_push": hidden,
+            "launches": launches,
+            "launches_per_steady_push": {
+                k: sorted({per_push[i][j] for i in steady})
+                for j, k in enumerate(launches)},
+            "launches_burst_push": per_push[6],
+            "i420_vs_converted_bgr": {"route_a": d_a, "route_b": d_b},
+            "f32_online_vs_batch_mesh_px": gap,
+            "mesh_atol_px": ONLINE_MESH_ATOL_PX,
+            "f32_route_a_vs_b": ab, "route_b_launches": gather,
+            "trace_pushes": TRACE_PUSHES, "trace": traced,
+            "held_against_plain": plain}
+
+
+def multi_views(T, seed=0):
+    """Three views of T frames: crops of one texture panorama half a view
+    apart, jittered per frame (tests/test_entry_and_multiview.py's
+    three-view clip, at FRAME_HW)."""
+    import numpy as np
+
+    from synthetic import _texture
+
+    h, w = FRAME_HW
+    rng = np.random.default_rng(seed)
+    pano = _texture(h + 16, w * 2 + 32, seed=9)
+    views = []
+    for k in range(3):
+        x0 = k * (w // 2)
+        frames = []
+        for _ in range(T):
+            j = rng.integers(0, 8, 2)
+            frames.append(pano[j[0]:j[0] + h, x0 + j[1]:x0 + j[1] + w])
+        views.append(np.stack(frames).astype(np.uint8))
+    return views
+
+
+def phase_multi(device, tmp):
+    """The N-view chain: ``stitch_multi_begin``/``finish`` at the CLI's
+    defaults (bf16, I420 uploads, yuv420 download, route A: one K2 launch
+    for the 3 x chunk images of a chunk) on a 3-view clip of MULTI_FRAMES
+    frames at 360x480, after a warm-up, counted; then ``cli stitch-multi``
+    on a jpg copy. Gates: T frames, a panorama at least one view wide,
+    the mp4 holds T frames; with float32 trunks route A's frames equal
+    route B's, and the chained meshes equal the chain run on the CPU on
+    the same pair meshes within CHAIN_ATOL_PX, while the chain run on pair
+    meshes rounded through bfloat16 (a planted fault) lies outside it. K1 and K2
+    (the warm-up's V x chunk images per launch) and K3 and K4 (route B)
+    are held against their plain versions on the path's inputs."""
+    import dataclasses
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from stabstitch2_tpu_torch import cli
+    from stabstitch2_tpu_torch.config import StitchConfig
+    from stabstitch2_tpu_torch.data.video_io import bgr_to_i420
+    from stabstitch2_tpu_torch.ops import (corr_cuda, fused_warp_cuda,
+                                           patch_gather_cuda, tps_coords_cuda)
+    from stabstitch2_tpu_torch.pipeline import threeview as tv
+    from stabstitch2_tpu_torch.pipeline.stitcher import (init_stitcher,
+                                                         model_input)
+
+    T = MULTI_FRAMES
+    views = multi_views(T)
+    clip, out = os.path.join(tmp, "multi"), os.path.join(tmp, "multi.mp4")
+    for k, v in enumerate(views):
+        d = os.path.join(clip, f"video{k + 1}")
+        os.makedirs(d)
+        for t, f in enumerate(v):
+            cv2.imwrite(os.path.join(d, f"{t:04d}.jpg"), f)
+    args = cli.make_parser().parse_args(["stitch-multi", "--video_dir", clip,
+                                         "--output", out])
+    st = cli.build_stitcher(args)
+    packed = [bgr_to_i420(v) for v in views]
+    held = PathInputs()
+    with held.recording():      # a chunk's V x chunk images in one K2 call
+        tv.stitch_multi_finish(tv.stitch_multi_begin(st, packed))  # warm-up
+    torch.cuda.synchronize()
+    corr_cuda.LAUNCHES.clear()
+    fused_warp_cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    pending = tv.stitch_multi_begin(st, packed)
+    frames, fmt = tv.stitch_multi_finish(pending)
+    wall = time.perf_counter() - t0
+    launches = {"cost_volume_r5": corr_cuda.LAUNCHES[5],
+                "cost_volume_r3": corr_cuda.LAUNCHES[3],
+                "fused_warp": fused_warp_cuda.LAUNCHES["fused_warp"]}
+    require(all(v > 0 for v in launches.values()),
+            f"K1 and K2 launched on the chain: {launches}")
+    c = pending.composite.canvas
+    require(fmt == "i420" and frames.shape == (T, c.out_h * 3 // 2, c.out_w),
+            f"chain frames {frames.shape} {fmt}")
+    require(c.out_w >= FRAME_HW[1], f"panorama {c.out_w} px wide")
+    require(frames.max() > 0, "chain frames not all 0")
+    t1 = time.perf_counter()
+    rc = cli.main(["stitch-multi", "--video_dir", clip, "--output", out])
+    cli_s = time.perf_counter() - t1
+    n_mp4 = mp4_frames(out) if os.path.exists(out) else 0
+    require(rc == 0 and n_mp4 == T, f"cli stitch-multi rc {rc}, {n_mp4} "
+                                    f"frames in the mp4")
+
+    st32 = init_stitcher(rng_seed=0, compute_dtype=torch.float32,
+                         device=device)
+    f_a = tv.stitch_multi_finish(tv.stitch_multi_begin(st32, views))[0]
+    tps_coords_cuda.LAUNCHES.clear()
+    patch_gather_cuda.LAUNCHES.clear()
+    with held.recording():
+        f_b = tv.stitch_multi_finish(tv.stitch_multi_begin(
+            dataclasses.replace(st32, config=StitchConfig(fused_warp=False)),
+            views))[0]
+    gather = {"tps_coords": tps_coords_cuda.LAUNCHES["tps_coords"],
+              "patch_gather": patch_gather_cuda.LAUNCHES["patch_gather"]}
+    require(all(v > 0 for v in gather.values()),
+            f"route B launched K3 and K4: {gather}")
+    ab = frame_diff(f_a, f_b)
+    require(ab["max"] == 0, f"chain route A vs route B float32: {ab}")
+    plain = held.hold(("cost_volume", "fused_warp", "tps_coords",
+                       "patch_gather"), "multi")
+    los = [model_input(st32.upload_frames(v, []), st32.model_h, st32.model_w)
+           for v in views]
+    pairs = [tv.pair_smooth_meshes(st32, los[j], los[j + 1])
+             for j in range(len(views) - 1)]
+    H, W = FRAME_HW
+    card = tv.chain_meshes(pairs, H, W, st32.model_h, st32.model_w)
+    cpu = tv.chain_meshes([(a.cpu(), b.cpu()) for a, b in pairs], H, W,
+                          st32.model_h, st32.model_w)
+    chain_gap = max(float((a.cpu() - b).abs().max())
+                    for a, b in zip(card, cpu))
+    require(chain_gap <= CHAIN_ATOL_PX,
+            f"chained meshes, card vs CPU on the same pair meshes: "
+            f"{chain_gap} px")
+    # a planted fault the gate must see: the pair meshes rounded through
+    # bfloat16 (the precision SmoothNet is kept out of) before the chain
+    planted = tv.chain_meshes(
+        [(a.to(torch.bfloat16).float(), b.to(torch.bfloat16).float())
+         for a, b in pairs], H, W, st32.model_h, st32.model_w)
+    planted_gap = max(float((a.cpu() - b).abs().max())
+                      for a, b in zip(planted, cpu))
+    require(planted_gap > CHAIN_ATOL_PX,
+            f"the chain gate sees bf16 pair meshes: {planted_gap} px")
+    return {"phase": "multi", "views": len(views), "frames": T,
+            "frame_hw": list(FRAME_HW), "compute_dtype": "bfloat16",
+            "upload": "i420", "download": fmt,
+            "canvas_hw": [c.out_h, c.out_w],
+            "padded_canvas_hw": [c.pad_h, c.pad_w], "wall_s": wall,
+            "fps": T / wall, "launches": launches, "cli_s": cli_s,
+            "mp4_frames": n_mp4, "f32_route_a_vs_b": ab,
+            "route_b_launches": gather, "chain_card_vs_cpu_px": chain_gap,
+            "chain_atol_px": CHAIN_ATOL_PX,
+            "chain_bf16_fault_vs_cpu_px": planted_gap,
+            "held_against_plain": plain}
+
+
+def phase_metric(device, tmp):
+    """The metric harness: ``evaluate_video`` on a METRIC_FRAMES-frame clip
+    at 360x480 with the ``metric`` command's stitcher (bf16, bgr upload),
+    after a warm-up, counted (K3 evaluates the float warp's spline); then
+    ``cli metric --out_json``. Gates: K1 and K3 launched, finite metrics;
+    with float32 trunks the card's metrics within METRIC_RTOL of the
+    port's on the CPU over CPU_FRAMES frames; the report is written; K1
+    and K3 (the float warp's spline, from the warm-up) are held against
+    their plain versions on the path's inputs."""
+    import numpy as np
+    import torch
+
+    from stabstitch2_tpu_torch import cli
+    from stabstitch2_tpu_torch.metrics.harness import evaluate_video
+    from stabstitch2_tpu_torch.ops import corr_cuda, tps_coords_cuda
+    from stabstitch2_tpu_torch.pipeline.stitcher import init_stitcher
+    from synthetic import make_two_view_clip, write_clip_dirs
+
+    v1, v2 = make_two_view_clip(num_frames=METRIC_FRAMES, height=FRAME_HW[0],
+                                width=FRAME_HW[1], overlap=0.5, shake_px=4.0,
+                                seed=3)
+    data, out = os.path.join(tmp, "metric"), os.path.join(tmp, "metric.json")
+    args = cli.make_parser().parse_args(["metric", "--test_path", data,
+                                         "--out_json", out])
+    st = cli.build_stitcher(args)
+    held = PathInputs()
+    with held.recording():      # the float warp's K3 calls
+        evaluate_video(st, v1, v2, upload=args.upload_format)  # warm-up
+    torch.cuda.synchronize()
+    corr_cuda.LAUNCHES.clear()
+    tps_coords_cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    got = evaluate_video(st, v1, v2, upload=args.upload_format)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {"cost_volume_r5": corr_cuda.LAUNCHES[5],
+                "cost_volume_r3": corr_cuda.LAUNCHES[3],
+                "tps_coords": tps_coords_cuda.LAUNCHES["tps_coords"]}
+    require(all(v > 0 for v in launches.values()),
+            f"K1 and K3 launched by the harness: {launches}")
+    require(all(np.isfinite(v) for v in got.values()), f"metrics {got}")
+    plain = held.hold(("cost_volume", "tps_coords"), "metric")
+
+    n = CPU_FRAMES
+    card = evaluate_video(init_stitcher(rng_seed=0,
+                                        compute_dtype=torch.float32,
+                                        device=device), v1[:n], v2[:n])
+    cpu = evaluate_video(init_stitcher(rng_seed=0,
+                                       compute_dtype=torch.float32,
+                                       device="cpu"), v1[:n], v2[:n])
+    rel = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
+    require(max(rel.values()) <= METRIC_RTOL,
+            f"float32 metrics, card vs CPU: relative gaps {rel}")
+    write_clip_dirs(data, num_frames=METRIC_FRAMES, height=FRAME_HW[0],
+                    width=FRAME_HW[1], seed=3)
+    rc = cli.main(["metric", "--test_path", data, "--out_json", out])
+    report = {}
+    if os.path.exists(out):
+        with open(out) as f:
+            report = json.load(f)
+    require(rc == 0 and set(report.get("average") or {}) == set(got),
+            f"cli metric rc {rc}, report {report}")
+    return {"phase": "metric", "frames": METRIC_FRAMES,
+            "frame_hw": list(FRAME_HW), "compute_dtype": "bfloat16",
+            "upload": args.upload_format, "metrics": got,
+            "ms_per_video": ms, "launches": launches,
+            "f32_card": card, "f32_cpu": cpu, "f32_rel_gap": rel,
+            "rtol": METRIC_RTOL, "cpu_frames": n,
+            "cli_report_average": report["average"],
+            "held_against_plain": plain}
 
 
 def main() -> int:
@@ -1072,6 +1704,18 @@ def main() -> int:
     cmp_ = phase_cpu_compare(st, clip)
     cmp_["seconds"] = time.perf_counter() - t
     emit(cmp_)
+
+    for run in (phase_online, phase_multi, phase_metric):
+        with tempfile.TemporaryDirectory() as tmp:
+            t = time.perf_counter()
+            info = run(device, tmp)
+            info["seconds"] = time.perf_counter() - t
+            emit(info)
+        # each kernel's error against its plain version: the largest over
+        # the kernels phase and the inputs of every path that ran it
+        for e in kernels:
+            for row in info["held_against_plain"].get(e["name"], ()):
+                e["max_abs_err"] = max(e["max_abs_err"], row["max_abs_err"])
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

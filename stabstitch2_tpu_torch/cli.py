@@ -1,30 +1,47 @@
-"""Command-line entry point of the port: ``stitch``.
+"""Command-line entry point of the port: ``stitch``, ``stitch-multi``,
+``metric``.
 
     python -m stabstitch2_tpu_torch.cli stitch --test_path <dataset> \
-        --output_path <dir> [--reference_pth_dir <dir>] [--preset ssd|tra] \
-        [--fusion_mode AVERAGE|LINEAR] [--warp_mode NORMAL|FAST] \
-        [--download_format yuv420|bgr] [--upload_format i420|bgr] \
-        [--trace_dir <dir>] [--no_phase_sync] [--device cuda|cpu]
+        --output_path <dir> [--trace_dir <dir>] [shared flags]
+    python -m stabstitch2_tpu_torch.cli stitch-multi --video_dir <dir> \
+        --output <mp4 or dir> [shared flags]
+    python -m stabstitch2_tpu_torch.cli metric --test_path <dataset> \
+        [--max_videos N] [--out_json <file>] [shared flags]
 
-Each <dataset>/<video>/video1 + video2 directory of jpgs becomes
-<output_path>/<video>.mp4. At the defaults, as the JAX CLI: bfloat16
-trunks, frames packed to I420 on the host (1.5 bytes per pixel; BGR for
-odd sizes), unpacked and resized to the model input on the device, the
-fused composite kernel, the yuv420 download; a loader thread decodes the
-next video while the device stitches this one, and video k+1 is begun
-before video k is finished and encoded. Without ``--reference_pth_dir``
-the models carry random weights drawn from ``--seed``.
+Shared flags: [--reference_pth_dir <dir>] [--preset ssd|tra]
+[--fusion_mode AVERAGE|LINEAR] [--warp_mode NORMAL|FAST] [--chunk N]
+[--download_format yuv420|bgr] [--upload_format i420|bgr]
+[--no_phase_sync] [--device cuda|cpu] [--seed N].
+
+``stitch``: each <dataset>/<video>/video1 + video2 directory of jpgs
+becomes <output_path>/<video>.mp4. At the defaults, as the JAX CLI:
+bfloat16 trunks, frames packed to I420 on the host (1.5 bytes per pixel;
+BGR for odd sizes), unpacked and resized to the model input on the
+device, the fused composite kernel, the yuv420 download; a loader thread
+decodes the next video while the device stitches this one, and video k+1
+is begun before video k is finished and encoded.
+
+``stitch-multi``: a clip of video1..videoN views (or a dataset of such
+clips, one mp4 each) is stitched as a chain of adjacent pairs, with the
+same defaults; clip k+1 is begun before clip k is finished.
+
+``metric``: PSNR, SSIM, stability and distortion per video, per
+StabStitch-D category and on average, from uint8 BGR uploads by default.
+
+Without ``--reference_pth_dir`` the models carry random weights drawn
+from ``--seed``.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import queue
 import sys
 import threading
 import time
-from typing import Callable, Iterable, Iterator, Optional, Tuple
+from typing import Callable, Iterable, Iterator, List, Optional, Tuple
 
 # one loaded video: (its directory, (hi1, lo1, hi2, lo2) or None, the
 # error that kept it from loading or None)
@@ -74,57 +91,71 @@ def threaded(items: Iterable[Loaded]) -> Iterator[Loaded]:
         yield item
 
 
-def stitch_stream(stitcher, loaded: Iterable[Loaded],
-                  sink: Callable[[str, object], None],
-                  trace_dir: Optional[str] = None) -> Tuple[int, int]:
-    """Stitch every loaded video, two deep: video k+1 is begun before
-    video k is finished and handed to ``sink(name, result)``. One video
-    that fails to load, begin, finish or sink is reported and skipped.
-    ``trace_dir`` traces each ``stitch_begin`` (``utils/profiling.py``).
-    Returns (stitched, failed)."""
-    from stabstitch2_tpu_torch.utils.profiling import trace
-
+def two_deep(loaded: Iterable[Loaded], begin: Callable,
+             finish: Callable) -> Tuple[int, int]:
+    """Begin every loaded item, ``begin(arrays) -> pending``, and finish
+    each, ``finish(name, pending, t0)``, only after the next one is begun.
+    An item that fails to load, begin or finish is reported and skipped.
+    Returns (done, failed)."""
     done = failed = 0
 
-    def finish(name, pending, t0):
+    def end(name, pending, t0):
         nonlocal done, failed
         try:
-            result = stitcher.stitch_finish(pending)
-            sink(name, result)
+            finish(name, pending, t0)
         except Exception as e:  # noqa: BLE001 - the run goes on
             print(f"{name}: stitch failed: {type(e).__name__}: {e}",
                   file=sys.stderr)
             failed += 1
             return
         done += 1
-        print(f"{name}: {len(result.frames)} frames "
-              f"canvas={result.canvas.out_w}x{result.canvas.out_h} "
-              f"ms={ {k: round(v, 1) for k, v in result.ms.items()} } "
-              f"fps={ {k: round(v, 1) for k, v in result.fps.items()} } "
-              f"({time.perf_counter() - t0:.1f}s)", flush=True)
 
     in_flight = None
-    for vd, arrays, err in loaded:
-        name = os.path.basename(vd)
+    for path, arrays, err in loaded:
+        name = os.path.basename(path.rstrip("/"))
         if err is not None:
             print(f"{name}: load failed: {err}", file=sys.stderr)
             failed += 1
             continue
         t0 = time.perf_counter()
         try:
-            with trace(trace_dir):
-                pending = stitcher.stitch_begin(*arrays)
+            pending = begin(arrays)
         except Exception as e:  # noqa: BLE001 - too short, canvas too big
             print(f"{name}: stitch failed: {type(e).__name__}: {e}",
                   file=sys.stderr)
             failed += 1
             continue
         if in_flight is not None:
-            finish(*in_flight)
+            end(*in_flight)
         in_flight = (name, pending, t0)
     if in_flight is not None:
-        finish(*in_flight)
+        end(*in_flight)
     return done, failed
+
+
+def stitch_stream(stitcher, loaded: Iterable[Loaded],
+                  sink: Callable[[str, object], None],
+                  trace_dir: Optional[str] = None) -> Tuple[int, int]:
+    """Stitch every loaded video, two deep (:func:`two_deep`): video k+1
+    is begun before video k is finished and handed to ``sink(name,
+    result)``. ``trace_dir`` traces each ``stitch_begin``
+    (``utils/profiling.py``). Returns (stitched, failed)."""
+    from stabstitch2_tpu_torch.utils.profiling import trace
+
+    def begin(arrays):
+        with trace(trace_dir):
+            return stitcher.stitch_begin(*arrays)
+
+    def finish(name, pending, t0):
+        result = stitcher.stitch_finish(pending)
+        sink(name, result)
+        print(f"{name}: {len(result.frames)} frames "
+              f"canvas={result.canvas.out_w}x{result.canvas.out_h} "
+              f"ms={ {k: round(v, 1) for k, v in result.ms.items()} } "
+              f"fps={ {k: round(v, 1) for k, v in result.fps.items()} } "
+              f"({time.perf_counter() - t0:.1f}s)", flush=True)
+
+    return two_deep(loaded, begin, finish)
 
 
 def mp4_sink(output_path: str) -> Callable[[str, object], None]:
@@ -142,10 +173,16 @@ def mp4_sink(output_path: str) -> Callable[[str, object], None]:
 
 
 def build_stitcher(args):
-    """The stitcher of the ``stitch`` flags."""
+    """The stitcher of the shared flags (:func:`add_stitcher_args`)."""
+    import torch
+
     from stabstitch2_tpu_torch.config import StitchConfig, preset_fusion_mode
     from stabstitch2_tpu_torch.utils.checkpoint import stitcher_from_checkpoint
 
+    # float32 means float32 where it runs (SmoothNet, the geometry, and
+    # the trunks of float32 parity runs): no TF32 convolutions or products
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     config = StitchConfig(
         fusion_mode=preset_fusion_mode(args.preset, args.fusion_mode),
         warp_mode=args.warp_mode, download_format=args.download_format)
@@ -157,14 +194,8 @@ def build_stitcher(args):
 
 
 def cmd_stitch(args) -> int:
-    import torch
-
     from stabstitch2_tpu_torch.data.video_io import list_videos
 
-    # float32 means float32 where it runs (SmoothNet, the geometry, and
-    # the trunks of float32 parity runs): no TF32 convolutions or products
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     stitcher = build_stitcher(args)
     videos = list_videos(args.test_path)
     if not videos:
@@ -183,13 +214,92 @@ def cmd_stitch(args) -> int:
     return 0
 
 
-def make_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(prog="stabstitch2_tpu_torch.cli")
-    sub = parser.add_subparsers(dest="cmd", required=True)
-    p = sub.add_parser("stitch", help="stitch two-view videos into mp4s")
-    p.add_argument("--test_path", required=True,
-                   help="dataset directory of <video>/video1+video2 jpgs")
-    p.add_argument("--output_path", required=True)
+def multi_clips(root: str) -> Tuple[List[str], bool]:
+    """The clips under ``stitch-multi --video_dir``: the directory itself
+    when it holds video1..videoN (one clip), else each subdirectory that
+    does (a dataset). Returns (clips, dataset mode)."""
+    from stabstitch2_tpu_torch.pipeline.threeview import view_dirs
+
+    if view_dirs(root):
+        return [root], False
+    return [os.path.join(root, d) for d in sorted(os.listdir(root))
+            if os.path.isdir(os.path.join(root, d))
+            and view_dirs(os.path.join(root, d))], True
+
+
+def cmd_stitch_multi(args) -> int:
+    from stabstitch2_tpu_torch.data.video_io import (bgr_to_i420, load_view,
+                                                     write_video)
+    from stabstitch2_tpu_torch.pipeline.threeview import (stitch_multi_begin,
+                                                          stitch_multi_finish,
+                                                          view_dirs)
+
+    stitcher = build_stitcher(args)
+    clips, dataset = multi_clips(args.video_dir)
+    if not clips:
+        print(f"no videoN subdirectories under {args.video_dir}",
+              file=sys.stderr)
+        return 1
+    # a dataset writes <output>/<name>.mp4, even for one clip; a single
+    # clip writes --output itself
+    if dataset:
+        os.makedirs(args.output, exist_ok=True)
+    size = (stitcher.model_h, stitcher.model_w)
+
+    def load():
+        for vd in clips:
+            try:
+                his = [load_view(vd, v, size)[0] for v in view_dirs(vd)]
+            except (OSError, ValueError) as e:
+                yield vd, None, e
+                continue
+            if args.upload_format == "i420":
+                try:
+                    his = [bgr_to_i420(h) for h in his]
+                except ValueError:      # odd sizes stay BGR
+                    pass
+            yield vd, his, None
+
+    def finish(name, pending, t0):
+        frames, fmt = stitch_multi_finish(pending)
+        out = (os.path.join(args.output, name + ".mp4") if dataset
+               else args.output)
+        write_video(out, frames, frame_format=fmt)
+        h = frames.shape[1] if fmt == "bgr" else frames.shape[1] * 2 // 3
+        print(f"{name}: {len(frames)} frames -> {out} ({frames.shape[2]}x{h}, "
+              f"{len(frames) / (time.perf_counter() - t0):.2f} fps)",
+              flush=True)
+
+    done, failed = two_deep(threaded(load()),
+                            lambda his: stitch_multi_begin(stitcher, his),
+                            finish)
+    if done == 0:
+        print("no videos stitched", file=sys.stderr)
+        return 1
+    if failed:
+        print(f"{done} stitched, {failed} failed or skipped", file=sys.stderr)
+    return 0
+
+
+def cmd_metric(args) -> int:
+    from stabstitch2_tpu_torch.metrics.harness import evaluate_dataset
+
+    stitcher = build_stitcher(args)
+    report = evaluate_dataset(stitcher, args.test_path,
+                              max_videos=args.max_videos,
+                              upload=args.upload_format)
+    print(json.dumps({k: v for k, v in report.items() if k != "per_video"},
+                     indent=2))
+    if args.out_json:
+        with open(args.out_json, "w") as f:
+            json.dump(report, f, indent=2)
+    return 0
+
+
+def add_stitcher_args(p: argparse.ArgumentParser, download: str,
+                      upload: str) -> None:
+    """The flags every command shares: the stitcher and its config, the
+    transfer formats (defaults per command) and the device."""
     p.add_argument("--reference_pth_dir", default=None,
                    help="directory with the reference's spatial_warp.pth, "
                         "temporal_warp.pth and smooth_warp.pth")
@@ -199,18 +309,15 @@ def make_parser() -> argparse.ArgumentParser:
                    default=None, help="overrides the preset's fusion")
     p.add_argument("--warp_mode", choices=["NORMAL", "FAST"], default="NORMAL")
     p.add_argument("--chunk", type=int, default=8)
-    p.add_argument("--trace_dir", default=None,
-                   help="write a torch.profiler Chrome trace of each "
-                        "video's stitch_begin (host and card) here")
     p.add_argument("--download_format", choices=["bgr", "yuv420"],
-                   default="yuv420",
-                   help="composite transfer format: yuv420 (default; "
-                        "encoder-native I420, half the device->host bytes) "
-                        "or bgr")
+                   default=download,
+                   help="composite transfer format: yuv420 (encoder-native "
+                        "I420, half the device->host bytes) or bgr; "
+                        f"default {download}")
     p.add_argument("--upload_format", choices=["i420", "bgr"],
-                   default="i420",
-                   help="frame upload packing: i420 (default; 1.5 bytes "
-                        "per pixel, BGR for odd sizes) or bgr")
+                   default=upload,
+                   help="frame upload packing: i420 (1.5 bytes per pixel, "
+                        "BGR for odd sizes) or bgr; default " + upload)
     p.add_argument("--no_phase_sync", action="store_true",
                    help="enqueue each video without the per-phase waits "
                         "(the phase ms become enqueue times)")
@@ -218,7 +325,42 @@ def make_parser() -> argparse.ArgumentParser:
                    help="'cuda' (default; raises without a card) or 'cpu'")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random model weights")
+
+
+def make_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="stabstitch2_tpu_torch.cli")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("stitch", help="stitch two-view videos into mp4s")
+    p.add_argument("--test_path", required=True,
+                   help="dataset directory of <video>/video1+video2 jpgs")
+    p.add_argument("--output_path", required=True)
+    p.add_argument("--trace_dir", default=None,
+                   help="write a torch.profiler Chrome trace of each "
+                        "video's stitch_begin (host and card) here")
+    add_stitcher_args(p, download="yuv420", upload="i420")
     p.set_defaults(fn=cmd_stitch)
+
+    p = sub.add_parser("stitch-multi",
+                       help="stitch N >= 2 views into one panorama mp4")
+    p.add_argument("--video_dir", required=True,
+                   help="a clip directory of video1..videoN jpg folders, or "
+                        "a dataset directory of such clips")
+    p.add_argument("--output", required=True,
+                   help="the mp4 of a single clip, or the directory of "
+                        "<clip>.mp4 for a dataset")
+    add_stitcher_args(p, download="yuv420", upload="i420")
+    p.set_defaults(fn=cmd_stitch_multi)
+
+    p = sub.add_parser("metric",
+                       help="PSNR, SSIM, stability and distortion over a "
+                            "dataset")
+    p.add_argument("--test_path", required=True,
+                   help="dataset directory of <video>/video1+video2 jpgs")
+    p.add_argument("--max_videos", type=int, default=None)
+    p.add_argument("--out_json", default=None,
+                   help="write the report, per video included, here")
+    add_stitcher_args(p, download="bgr", upload="bgr")
+    p.set_defaults(fn=cmd_metric)
     return parser
 
 

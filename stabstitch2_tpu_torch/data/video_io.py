@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import glob
 import os
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -31,9 +31,13 @@ def list_frames(video_dir: str, view: str) -> List[str]:
 
 
 def load_view(video_dir: str, view: str,
-              model_size: Tuple[int, int] = (MODEL_H, MODEL_W)
-              ) -> Tuple[np.ndarray, np.ndarray]:
-    """(hires uint8 [T, H, W, 3], model-size float32 [T, mh, mw, 3] in [-1, 1])."""
+              model_size: Tuple[int, int] = (MODEL_H, MODEL_W),
+              want_hi: bool = True, normalize: bool = True
+              ) -> Tuple[Optional[np.ndarray], np.ndarray]:
+    """(hires uint8 [T, H, W, 3], model-size float32 [T, mh, mw, 3] in
+    [-1, 1]). ``want_hi=False`` gives None for the hires frames;
+    ``normalize=False`` keeps the model-size frames uint8 (the metric
+    harness normalizes them on the device)."""
     import cv2
 
     paths = list_frames(video_dir, view)
@@ -45,17 +49,24 @@ def load_view(video_dir: str, view: str,
         img = cv2.imread(p)
         if img is None:
             raise IOError(f"failed to read {p}")
-        hi.append(img)
-        lo.append(cv2.resize(img, (mw, mh)).astype(np.float32) / 127.5 - 1.0)
-    return np.stack(hi), np.stack(lo)
+        if want_hi:
+            hi.append(img)
+        small = cv2.resize(img, (mw, mh))
+        lo.append(small.astype(np.float32) / 127.5 - 1.0 if normalize
+                  else small)
+    return (np.stack(hi) if want_hi else None), np.stack(lo)
 
 
 def load_video_pair(video_dir: str,
-                    model_size: Tuple[int, int] = (MODEL_H, MODEL_W)):
-    """Both views of a two-view video directory, cut to the shorter one."""
-    hi1, lo1 = load_view(video_dir, "video1", model_size)
-    hi2, lo2 = load_view(video_dir, "video2", model_size)
+                    model_size: Tuple[int, int] = (MODEL_H, MODEL_W),
+                    want_hi: bool = True, normalize: bool = True):
+    """Both views of a two-view video directory, cut to the shorter one
+    (the hires frames None without ``want_hi``)."""
+    hi1, lo1 = load_view(video_dir, "video1", model_size, want_hi, normalize)
+    hi2, lo2 = load_view(video_dir, "video2", model_size, want_hi, normalize)
     T = min(len(lo1), len(lo2))
+    if not want_hi:
+        return None, lo1[:T], None, lo2[:T]
     return hi1[:T], lo1[:T], hi2[:T], lo2[:T]
 
 

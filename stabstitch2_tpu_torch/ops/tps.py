@@ -201,6 +201,79 @@ def tps_sample_coords(T: torch.Tensor, source: torch.Tensor,
     return tps_coords(T, source, out_size, grid_span=grid_span)
 
 
+def tps_warp(im: torch.Tensor, source: torch.Tensor, target: torch.Tensor,
+             out_size: Tuple[int, int], mode: str = "NORMAL",
+             T: Optional[torch.Tensor] = None,
+             grid_span: Optional[Tuple[float, float]] = None,
+             coord_stride: int = 1) -> torch.Tensor:
+    """TPS image warp [B, oh, ow, C] of ``im`` as float32: the coordinate
+    route of :func:`tps_warp_with_mask` with ``bilinear_sample`` in NORMAL
+    mode whatever the input's dtype, as the JAX package's ``tps_warp``."""
+    return tps_warp_with_mask(im.to(torch.float32), source, target, out_size,
+                              mode=mode, T=T, grid_span=grid_span,
+                              coord_stride=coord_stride)[0]
+
+
+def tps_warp_with_mask(im: torch.Tensor, source: torch.Tensor,
+                       target: Optional[torch.Tensor],
+                       out_size: Tuple[int, int], mode: str = "NORMAL",
+                       T: Optional[torch.Tensor] = None,
+                       grid_span: Optional[Tuple[float, float]] = None,
+                       coord_stride: int = 1, fused_warp: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """TPS warp of ``im`` [B, H, W, C] and its coverage mask.
+
+    ``source`` is the deformed mesh and ``target`` the rigid lattice, both
+    [B, P, 2] normalized; each output pixel is mapped through the
+    source->target spline and sampled from ``im`` (backward warping).
+    ``T`` skips the solve (``target`` is then unused). Returns the warped
+    image float32 [B, oh, ow, C] and the mask [B, oh, ow].
+
+    The routes, one per input:
+    - uint8 BGR, NORMAL, ``coord_stride`` 1 and ``fused_warp``: the fused
+      composite-warp kernel K2 (``ops/fused_warp_cuda.py``) does the
+      spline, the sample and the mask;
+    - otherwise the coordinates come from :func:`tps_sample_coords` (K3 at
+      stride 1), then NORMAL samples uint8 BGR with the patch-gather
+      kernel K4 (``ops/patch_gather_cuda.py``) and anything else with
+      ``bilinear_sample``, with ``bilinear_mask``; FAST uses the
+      ``grid_sample``-style sampler and mask.
+    Each wrapper runs its plain version on a CPU tensor.
+    """
+    from stabstitch2_tpu_torch.ops.interp import (
+        bilinear_mask, bilinear_sample, grid_sample_align_corners,
+        grid_sample_mask_align_corners)
+
+    B, H, W, C = im.shape
+    u8_bgr = im.dtype == torch.uint8 and C == 3
+    if T is None:
+        T = tps_params(source, target).contiguous()
+    source = source.contiguous()
+    if fused_warp and mode == "NORMAL" and u8_bgr and coord_stride == 1:
+        from stabstitch2_tpu_torch.ops.fused_warp_cuda import fused_warp_planes
+
+        pb, pg, pr, mask, _ = fused_warp_planes(im, T, source, out_size,
+                                                grid_span=grid_span)
+        return torch.stack([pb, pg, pr], dim=-1), mask
+    x_s, y_s = tps_sample_coords(T, source, out_size, grid_span=grid_span,
+                                 coord_stride=coord_stride)
+    if mode == "NORMAL":
+        if u8_bgr:
+            from stabstitch2_tpu_torch.ops.patch_gather_cuda import (
+                bilinear_sample_patch_u8_cuda)
+
+            sampled, _ = bilinear_sample_patch_u8_cuda(im, x_s, y_s, out_size)
+        else:
+            sampled = bilinear_sample(im, x_s, y_s)
+        m = bilinear_mask(H, W, x_s, y_s)
+    elif mode == "FAST":
+        sampled = grid_sample_align_corners(im.to(torch.float32), x_s, y_s)
+        m = grid_sample_mask_align_corners(H, W, x_s, y_s)
+    else:
+        raise ValueError(f"unknown warp mode {mode!r}")
+    return sampled.reshape(B, *out_size, C), m.reshape(B, *out_size)
+
+
 def tps_transform_points(points: torch.Tensor, source: torch.Tensor,
                          target: torch.Tensor,
                          T: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -1,1 +1,2 @@
-"""The two-view stitch pipeline: motion, transport, smoothing, composite."""
+"""The stitch pipelines: motion, transport, smoothing, composite; two-view
+batch, online streaming and the N-view chain."""

@@ -8,7 +8,9 @@ true extent, so the padding does not change any kept pixel.
 
 Routes (the dispatch of the JAX package's ``_composite_chunk`` and
 ``composite_begin``, with its ``pallas_gather`` always on: the card has
-one gather, K4, and it cannot overflow, so there is no repair leg):
+one gather, K4, and it cannot overflow, so there is no repair leg); all
+but B-planar go through ``ops/tps.py:tps_warp_with_mask``, which the
+online stitcher, the N-view chain and the metric harness share:
 
 - A, fused (``StitchConfig.fused_warp`` True, or None, its default, for
   NORMAL mode at ``coord_stride`` 1) on uint8 input: the fused
@@ -39,7 +41,7 @@ assembles the frames. A caller can begin the next video in between.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,14 +50,12 @@ from stabstitch2_tpu_torch.config import MODEL_H, MODEL_W, StitchConfig
 from stabstitch2_tpu_torch.data.video_io import pack_i420_host
 from stabstitch2_tpu_torch.ops.blend import (average_fusion, linear_blend_mask,
                                              linear_fusion)
-from stabstitch2_tpu_torch.ops.fused_warp_cuda import fused_warp_planes
-from stabstitch2_tpu_torch.ops.interp import (bilinear_mask, bilinear_sample,
-                                              grid_sample_align_corners,
-                                              grid_sample_mask_align_corners)
+from stabstitch2_tpu_torch.ops.interp import bilinear_mask
 from stabstitch2_tpu_torch.ops.mesh import mesh_points, normalize_mesh, rigid_mesh
 from stabstitch2_tpu_torch.ops.patch_gather_cuda import (
     bilinear_sample_patch_u8_cuda)
-from stabstitch2_tpu_torch.ops.tps import tps_params, tps_sample_coords
+from stabstitch2_tpu_torch.ops.tps import (tps_params, tps_sample_coords,
+                                           tps_warp_with_mask)
 from stabstitch2_tpu_torch.ops.yuv import (bgr_planes_to_yuv420, bgr_to_yuv420,
                                            bgr_u8_to_yuv420)
 from stabstitch2_tpu_torch.utils.transfer import constant, to_device
@@ -164,41 +164,31 @@ def composite_chunk(img1: torch.Tensor, img2: torch.Tensor,
     if not input_u8:
         img1, img2 = img1.to(torch.float32), img2.to(torch.float32)
     stack, T, source = warp_inputs(img1, img2, mesh1, mesh2, offset, grid_span)
-    _, H, W, _ = stack.shape
-    if (fused_warp and warp_mode == "NORMAL" and input_u8
-            and coord_stride == 1):
-        pb, pg, pr, masks, _ = fused_warp_planes(stack, T, source, out_size,
-                                                 grid_span=grid_span)
-        warped = torch.stack([pb, pg, pr], dim=-1)          # [2B, oh, ow, 3]
-    else:
+    if (warp_mode == "NORMAL" and input_u8 and out_format == "yuv420"
+            and not (fused_warp and coord_stride == 1)):
         x_s, y_s = tps_sample_coords(T, source, out_size, grid_span=grid_span,
                                      coord_stride=coord_stride)
-        if warp_mode == "NORMAL":
-            if input_u8 and out_format == "yuv420":
-                return _planar_yuv420(stack, x_s, y_s, out_size, B,
-                                      fusion_mode)
-            if input_u8:
-                warped, _ = bilinear_sample_patch_u8_cuda(stack, x_s, y_s,
-                                                          out_size)
-            else:
-                warped = bilinear_sample(stack, x_s, y_s)
-            m = bilinear_mask(H, W, x_s, y_s)
-        elif warp_mode == "FAST":
-            warped = grid_sample_align_corners(stack.to(torch.float32),
-                                               x_s, y_s)
-            m = grid_sample_mask_align_corners(H, W, x_s, y_s)
-        else:
-            raise ValueError(f"unknown warp_mode {warp_mode!r}")
-        warped = warped.reshape(2 * B, *out_size, 3)
-        masks = m.reshape(2 * B, *out_size)
-    fused = _fuse(warped[:B], warped[B:], masks[:B], masks[B:], fusion_mode)
+        return _planar_yuv420(stack, x_s, y_s, out_size, B, fusion_mode)
+    warped, masks = tps_warp_with_mask(stack, source, None, out_size,
+                                       mode=warp_mode, T=T,
+                                       grid_span=grid_span,
+                                       coord_stride=coord_stride,
+                                       fused_warp=fused_warp)
+    return clip_and_convert(
+        _fuse(warped[:B], warped[B:], masks[:B], masks[B:], fusion_mode),
+        out_format)
+
+
+def clip_and_convert(fused: torch.Tensor, out_format: str):
+    """A float fusion [B, h, w, 3] clipped to 0..255: uint8 BGR for 'bgr'
+    (truncated), the uint8 I420 planes of the float values for 'yuv420'."""
     fused = torch.clamp(fused, 0.0, 255.0)
     if out_format == "yuv420":
         return bgr_to_yuv420(fused)
     return fused.to(torch.uint8)
 
 
-def _to_device(x, device) -> torch.Tensor:
+def frames_to_device(x, device) -> torch.Tensor:
     """Frames onto the device: numpy arrays as uint8 (as the JAX package
     takes host frames), tensors as they are."""
     if isinstance(x, np.ndarray):
@@ -217,12 +207,107 @@ class PendingComposite:
     copied: Optional[torch.cuda.Event]    # every copy into `host` is done
 
 
-def _record(device: torch.device) -> Optional[torch.cuda.Event]:
+def record_event(device: torch.device) -> Optional[torch.cuda.Event]:
     if device.type != "cuda":
         return None
     event = torch.cuda.Event()
     event.record(torch.cuda.current_stream(device))
     return event
+
+
+def wait(event: Optional[torch.cuda.Event]) -> None:
+    """Wait for the card up to ``event`` (None: nothing is in flight)."""
+    if event is not None:
+        event.synchronize()
+
+
+def host_buffer(shape, dtype: torch.dtype, device: torch.device
+                ) -> torch.Tensor:
+    """A host buffer for copies off ``device``: page-locked on a card, so a
+    ``non_blocking`` copy into it does not wait for the device."""
+    return torch.empty(shape, dtype=dtype, pin_memory=device.type == "cuda")
+
+
+def copy_to_host(host: List[torch.Tensor], tensors) -> None:
+    """Enqueue the copies of device tensors into host buffers."""
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+
+
+def fetch(tensors, device: torch.device) -> List[torch.Tensor]:
+    """Device tensors on the host with one wait: the copies into
+    page-locked buffers, then an event after them."""
+    host = [host_buffer(t.shape, t.dtype, device) for t in tensors]
+    copy_to_host(host, tensors)
+    wait(record_event(device))
+    return host
+
+
+def fused_route(config: StitchConfig) -> bool:
+    """Whether composites take route A: ``config.fused_warp``, whose None
+    selects it for NORMAL mode at ``coord_stride`` 1."""
+    if config.fused_warp is not None:
+        return config.fused_warp
+    return config.warp_mode == "NORMAL" and config.coord_stride == 1
+
+
+def chains_yuv420(config: StitchConfig, out_format: str) -> bool:
+    """Whether yuv420 is made from the uint8 BGR composite
+    (``bgr_u8_to_yuv420``): on the NORMAL gather route, as the JAX package
+    chains only there (its automatic gather is NORMAL-only)."""
+    return (not fused_route(config) and config.warp_mode == "NORMAL"
+            and out_format == "yuv420")
+
+
+def plan_canvas(mesh1: torch.Tensor, mesh2: torch.Tensor,
+                config: StitchConfig) -> Tuple[Canvas, Tuple]:
+    """The canvas of frame-resolution meshes and the spline's normalization
+    span (the true extent, float32). Raises past ``config.max_canvas_*``;
+    for yuv420 the canvas describes the frames emitted, cropped to even
+    sizes. Fetches the meshes' extent: the one wait of a begin."""
+    canvas = compute_canvas(mesh1, mesh2, config.canvas_bucket)
+    if canvas.pad_h > config.max_canvas_h or canvas.pad_w > config.max_canvas_w:
+        raise ValueError(
+            f"canvas {canvas.pad_h}x{canvas.pad_w} exceeds configured max "
+            f"{config.max_canvas_h}x{config.max_canvas_w}")
+    grid_span = (np.float32(canvas.out_h), np.float32(canvas.out_w))
+    if config.download_format == "yuv420":
+        canvas = dataclasses.replace(canvas, out_h=canvas.out_h // 2 * 2,
+                                     out_w=canvas.out_w // 2 * 2)
+    return canvas, grid_span
+
+
+def enqueue_chunks(run: Callable, T: int, chunk: int, canvas: Canvas,
+                   config: StitchConfig, device: torch.device
+                   ) -> PendingComposite:
+    """Enqueue ``run(s, e, out_format)``, the padded composite of frames
+    s..e, chunk by chunk, and each crop's copy into host buffers:
+    page-locked and ``non_blocking`` on a card, so nothing here waits for
+    the device. NORMAL-mode yuv420 off the fused route is chained
+    (:func:`chains_yuv420`)."""
+    out_format = config.download_format
+    chain_yuv = chains_yuv420(config, out_format)
+    oh, ow = canvas.out_h, canvas.out_w
+    shapes = ([(T, oh, ow), (T, oh // 2, ow // 2), (T, oh // 2, ow // 2)]
+              if out_format == "yuv420" else [(T, oh, ow, 3)])
+    host = [host_buffer(s, torch.uint8, device) for s in shapes]
+    computed = None
+    for s in range(0, T, chunk):
+        e = min(s + chunk, T)
+        out = run(s, e, "bgr" if chain_yuv else out_format)
+        if chain_yuv:
+            out = bgr_u8_to_yuv420(out)
+        if out_format == "yuv420":
+            y, u, v = out
+            crops = (y[:, :oh, :ow], u[:, :oh // 2, :ow // 2],
+                     v[:, :oh // 2, :ow // 2])
+        else:
+            crops = (out[:, :oh, :ow],)
+        if e == T:
+            computed = record_event(device)
+        copy_to_host([h[s:e] for h in host], crops)
+    return PendingComposite(host=host, canvas=canvas, out_format=out_format,
+                            computed=computed, copied=record_event(device))
 
 
 def composite_begin(img1, img2, smooth_mesh1: torch.Tensor,
@@ -233,68 +318,31 @@ def composite_begin(img1, img2, smooth_mesh1: torch.Tensor,
 
     img1/img2: [T, H, W, 3] uint8 (numpy or tensor; a float tensor takes
     the float route); smooth_mesh*: [T, GH+1, GW+1, 2] model-resolution
-    meshes. Returns the pending state for :func:`composite_finish`.
-
-    Each chunk's crop is copied into host buffers as soon as it is
-    enqueued: page-locked buffers and ``non_blocking`` copies on a card,
-    so nothing here waits for the device after the canvas fetch.
+    meshes. Returns the pending state for :func:`composite_finish`; after
+    the canvas fetch nothing waits for the device
+    (:func:`enqueue_chunks`).
     """
     config = config or StitchConfig()
-    fused = config.fused_warp
-    if fused is None:
-        fused = config.warp_mode == "NORMAL" and config.coord_stride == 1
-    out_format = config.download_format
-    # the NORMAL gather route's yuv420 is chained: uint8 BGR, then the
-    # conversion (JAX chains only there: its auto gather is NORMAL-only)
-    chain_yuv = (not fused and config.warp_mode == "NORMAL"
-                 and out_format == "yuv420")
+    fused = fused_route(config)
     device = smooth_mesh1.device
     T, H, W, _ = img1.shape
     m1 = scale_meshes(smooth_mesh1, H, W, *model_size)
     m2 = scale_meshes(smooth_mesh2, H, W, *model_size)
-    canvas = compute_canvas(m1, m2, config.canvas_bucket)
-    if canvas.pad_h > config.max_canvas_h or canvas.pad_w > config.max_canvas_w:
-        raise ValueError(
-            f"canvas {canvas.pad_h}x{canvas.pad_w} exceeds configured max "
-            f"{config.max_canvas_h}x{config.max_canvas_w}")
-    # the normalization span keeps the true extent; yuv420 frames are
-    # cropped to even sizes, and the canvas describes the frames emitted
-    grid_span = (np.float32(canvas.out_h), np.float32(canvas.out_w))
-    if out_format == "yuv420":
-        canvas = dataclasses.replace(canvas, out_h=canvas.out_h // 2 * 2,
-                                     out_w=canvas.out_w // 2 * 2)
-    oh, ow = canvas.out_h, canvas.out_w
+    canvas, grid_span = plan_canvas(m1, m2, config)
     offset = constant([canvas.x_min, canvas.y_min], torch.float32, device)
-    shapes = ([(T, oh, ow), (T, oh // 2, ow // 2), (T, oh // 2, ow // 2)]
-              if out_format == "yuv420" else [(T, oh, ow, 3)])
-    host = [torch.empty(s, dtype=torch.uint8,
-                        pin_memory=device.type == "cuda") for s in shapes]
-    computed = None
-    for s in range(0, T, chunk):
-        e = min(s + chunk, T)
-        out = composite_chunk(_to_device(img1[s:e], device),
-                              _to_device(img2[s:e], device),
-                              m1[s:e], m2[s:e], offset,
-                              (canvas.pad_h, canvas.pad_w),
-                              config.fusion_mode, grid_span,
-                              warp_mode=config.warp_mode,
-                              out_format="bgr" if chain_yuv else out_format,
-                              coord_stride=config.coord_stride,
-                              fused_warp=fused)
-        if chain_yuv:
-            out = bgr_u8_to_yuv420(out)
-        if out_format == "yuv420":
-            y, u, v = out
-            crops = (y[:, :oh, :ow], u[:, :oh // 2, :ow // 2],
-                     v[:, :oh // 2, :ow // 2])
-        else:
-            crops = (out[:, :oh, :ow],)
-        if e == T:
-            computed = _record(device)
-        for h, c in zip(host, crops):
-            h[s:e].copy_(c, non_blocking=True)
-    return PendingComposite(host=host, canvas=canvas, out_format=out_format,
-                            computed=computed, copied=_record(device))
+
+    def run(s, e, out_format):
+        return composite_chunk(frames_to_device(img1[s:e], device),
+                               frames_to_device(img2[s:e], device),
+                               m1[s:e], m2[s:e], offset,
+                               (canvas.pad_h, canvas.pad_w),
+                               config.fusion_mode, grid_span,
+                               warp_mode=config.warp_mode,
+                               out_format=out_format,
+                               coord_stride=config.coord_stride,
+                               fused_warp=fused)
+
+    return enqueue_chunks(run, T, chunk, canvas, config, device)
 
 
 def composite_finish(state: PendingComposite, timer=None
@@ -307,12 +355,10 @@ def composite_finish(state: PendingComposite, timer=None
     the last chunk's compute is done, and ``download``, the copies'
     remainder, as in the JAX package.
     """
-    if state.computed is not None:
-        state.computed.synchronize()
+    wait(state.computed)
     if timer is not None:
         timer.mark("warp_fuse", sync=False)
-    if state.copied is not None:
-        state.copied.synchronize()
+    wait(state.copied)
     if timer is not None:
         timer.mark("download", sync=False)
     host = [h.numpy() for h in state.host]

@@ -148,41 +148,19 @@ class VideoStitcher:
         timer = PhaseTimer(T, self.device if self.sync_phases else None)
         given = lo1 is not None and lo2 is not None
         staging: List[torch.Tensor] = []
-
-        def upload(x: np.ndarray, dtype) -> torch.Tensor:
-            host = pinned(np.ascontiguousarray(x, dtype), self.device)
-            staging.append(host)
-            return host.to(self.device, non_blocking=True)
-
-        def frames(hi: np.ndarray) -> torch.Tensor:
-            # uint8 unless both lo are given; then float frames stay float
-            # (float32: the JAX package's arrays are float32 at most)
-            keep = given and hi.dtype != np.uint8
-            h = upload(hi, np.float32 if keep else np.uint8)
-            return unpack_i420_u8(h) if h.dim() == 3 else h
-
         mh, mw = self.model_h, self.model_w
         with annotate("upload"):
-            h1, h2 = frames(hi1), frames(hi2)
+            # uint8 unless both lo are given; then float frames stay float
+            h1, h2 = (self.upload_frames(h, staging, keep_float=given
+                                         and h.dtype != np.uint8)
+                      for h in (hi1, hi2))
             if given:
-                l1, l2 = upload(lo1, np.float32), upload(lo2, np.float32)
+                l1 = self.upload(lo1, np.float32, staging)
+                l2 = self.upload(lo2, np.float32, staging)
             else:
                 l1, l2 = model_input(h1, mh, mw), model_input(h2, mh, mw)
         timer.mark("upload")
-        with annotate("spatial"):
-            smotion1, smotion2 = self._motion.spatial(l1, l2)
-        timer.mark("spatial")
-        with annotate("temporal"):
-            tmotion1, tmotion2 = self._motion.temporal_pair(l1, l2)
-        timer.mark("temporal")
-        with annotate("smooth"):
-            ts1, ts2 = transport_both_views(tmotion1, smotion1, tmotion2,
-                                            smotion2, mh, mw)
-            smooth = smooth_all_windows(self.smooth_net,
-                                        stitched_meshes(smotion1, mh, mw),
-                                        stitched_meshes(smotion2, mh, mw),
-                                        ts1, ts2, window=window)
-        timer.mark("smooth")
+        smooth = self.motion_smooth(l1, l2, timer)
         with annotate("composite"):
             state = composite_begin(h1, h2, smooth["smooth_mesh1"],
                                     smooth["smooth_mesh2"],
@@ -190,6 +168,55 @@ class VideoStitcher:
                                     model_size=(mh, mw))
         return _PendingStitch(composite=state, smooth=smooth, timer=timer,
                               T=T, staging=staging)
+
+    def upload(self, x: np.ndarray, dtype, staging: List[torch.Tensor]
+               ) -> torch.Tensor:
+        """``x`` as ``dtype`` on the device, copied without blocking from a
+        page-locked buffer appended to ``staging`` (hold it until the
+        video is finished)."""
+        host = pinned(np.ascontiguousarray(x, dtype), self.device)
+        staging.append(host)
+        return host.to(self.device, non_blocking=True)
+
+    def upload_frames(self, hi: np.ndarray, staging: List[torch.Tensor],
+                      keep_float: bool = False) -> torch.Tensor:
+        """Frames [T, H, W, 3] BGR or packed I420 [T, H*3//2, W] onto the
+        device as BGR [T, H, W, 3]: uint8 (I420 unpacked on the device),
+        or float32 with ``keep_float`` (float 0..255 frames whose model
+        input is given). :func:`model_input` makes the model input from
+        them."""
+        h = self.upload(hi, np.float32 if keep_float else np.uint8, staging)
+        return unpack_i420_u8(h) if h.dim() == 3 else h
+
+    @torch.no_grad()
+    def motion_smooth(self, l1: torch.Tensor, l2: torch.Tensor,
+                      timer: Optional[PhaseTimer] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """Spatial and temporal motion, transport and the smoothing of
+        every window for model inputs [T, mh, mw, 3] in [-1, 1] on the
+        device: the dict of :func:`smooth_all_windows` (per-frame smooth
+        and original meshes, per-window paths). Runs at the true T, with
+        no waits; ``timer`` marks the phases ``spatial``, ``temporal`` and
+        ``smooth``."""
+        mh, mw = self.model_h, self.model_w
+        with annotate("spatial"):
+            smotion1, smotion2 = self._motion.spatial(l1, l2)
+        if timer is not None:
+            timer.mark("spatial")
+        with annotate("temporal"):
+            tmotion1, tmotion2 = self._motion.temporal_pair(l1, l2)
+        if timer is not None:
+            timer.mark("temporal")
+        with annotate("smooth"):
+            ts1, ts2 = transport_both_views(tmotion1, smotion1, tmotion2,
+                                            smotion2, mh, mw)
+            smooth = smooth_all_windows(self.smooth_net,
+                                        stitched_meshes(smotion1, mh, mw),
+                                        stitched_meshes(smotion2, mh, mw),
+                                        ts1, ts2, window=self.config.window)
+        if timer is not None:
+            timer.mark("smooth")
+        return smooth
 
     def stitch_finish(self, pending: _PendingStitch) -> StitchResult:
         """Collect the frames enqueued by :meth:`stitch_begin`."""

@@ -359,3 +359,67 @@ def test_bf16_meshes_within_the_cpu_bound(cuda_device):
     gap = max(float((getattr(runs[0], k) - getattr(runs[1], k)).abs().max())
               for k in ("smooth_mesh1", "smooth_mesh2"))
     assert 0 < gap <= 2 * 0.0702, gap
+
+
+def test_tps_warp_with_mask_float_k3_equals_plain(cuda_device):
+    """Float images (the metric harness's warp): K3's coordinates, then the
+    float bilinear sample, equal the plain path's on the card exactly."""
+    from stabstitch2_tpu_torch.ops.interp import bilinear_mask, bilinear_sample
+    from stabstitch2_tpu_torch.ops.tps import tps_coords_plain, tps_warp_with_mask
+
+    im, T, norm = _warp_case(cuda_device, span=(120, 160))
+    img = im.to(torch.float32) + 0.25
+    n = tps_coords_cuda.LAUNCHES["tps_coords"]
+    warped, mask = tps_warp_with_mask(img, norm, None, (120, 160), T=T)
+    torch.cuda.synchronize()
+    assert tps_coords_cuda.LAUNCHES["tps_coords"] == n + 1
+    x, y = tps_coords_plain(T, norm, (120, 160))
+    ref = bilinear_sample(img, x, y).reshape(warped.shape)
+    torch.testing.assert_close(warped, ref, atol=0, rtol=0)
+    torch.testing.assert_close(mask, bilinear_mask(120, 160, x, y)
+                               .reshape(mask.shape), atol=0, rtol=0)
+
+
+def test_online_route_a_equals_route_b(cuda_device):
+    """The online stitcher's frames on K2 (route A) and on K3 + K4 (route
+    B) are the same bytes, bgr and i420 (NORMAL-mode route B chains the
+    4:2:0 conversion, so i420 compares within one level)."""
+    import dataclasses
+
+    from stabstitch2_tpu_torch.pipeline.online import OnlineStitcher
+    from synthetic import make_two_view_clip
+
+    v1, v2 = make_two_view_clip(num_frames=9, height=128, width=160,
+                                overlap=0.6, shake_px=2.0, seed=5)
+    st = init_stitcher(0, StitchConfig(canvas_bucket=32), model_h=128,
+                       model_w=160, chunk=4, compute_dtype=torch.float32,
+                       device=cuda_device)
+    st_b = dataclasses.replace(st, config=StitchConfig(canvas_bucket=32,
+                                                       fused_warp=False))
+    for fmt, tol in (("bgr", 0), ("i420", 1)):
+        frames = []
+        for s, kernel in ((st, fused_warp_cuda), (st_b, patch_gather_cuda)):
+            kernel.LAUNCHES.clear()
+            o = OnlineStitcher(s, emit_format=fmt)
+            out = [f for a, b in zip(v1, v2) for f in o.push(a, b)]
+            assert len(out) == 9 and sum(kernel.LAUNCHES.values()) == 3
+            frames.append(np.stack(out).astype(np.int16))
+        assert np.abs(frames[0] - frames[1]).max() <= tol
+
+
+def test_chain_k2_launch_over_views_equals_per_image_launches(cuda_device):
+    """The chain warps V x B images in one K2 launch; each image equals
+    its own launch."""
+    from stabstitch2_tpu_torch.ops.tps import tps_warp_with_mask
+
+    im, T, norm = _warp_case(cuda_device, B=6)
+    n = fused_warp_cuda.LAUNCHES["fused_warp"]
+    warped, mask = tps_warp_with_mask(im, norm, None, (144, 256), T=T,
+                                      grid_span=(140, 250), fused_warp=True)
+    assert fused_warp_cuda.LAUNCHES["fused_warp"] == n + 1
+    for i in range(6):
+        w, m = tps_warp_with_mask(im[i:i + 1], norm[i:i + 1], None,
+                                  (144, 256), T=T[i:i + 1].contiguous(),
+                                  grid_span=(140, 250), fused_warp=True)
+        torch.testing.assert_close(w[0], warped[i], atol=0, rtol=0)
+        torch.testing.assert_close(m[0], mask[i], atol=0, rtol=0)

@@ -133,6 +133,36 @@ class TestTPS:
             got = interp.bilinear_sample(t(img), x, y).reshape(B, *out_size, C)
             np.testing.assert_allclose(n(got), nchw_to_nhwc(g[key]), atol=2e-2)
 
+    @pytest.mark.parametrize("mode,dtype,fused", [
+        ("NORMAL", np.uint8, True), ("NORMAL", np.uint8, False),
+        ("NORMAL", np.float32, False), ("FAST", np.uint8, False),
+        ("FAST", np.float32, False)])
+    def test_warps_match_jax(self, mode, dtype, fused):
+        """``tps_warp_with_mask`` on each of its routes (K2's, K3 then K4's
+        or the float sampler, FAST) and ``tps_warp``, on the JAX package's
+        coefficients. The two sides sum the spline in another order
+        (test_params_and_coords_match_jax: 2e-4 normalized, 4e-3 px at
+        this 40 px width), so a sample may move by that times the
+        image's steepest slope, 255 per px for this noise: atol 1.0 on
+        0..255, and 4e-3 on the masks (slope 1 per px)."""
+        src, tgt = _mesh_case(seed=2, B=3)
+        im = np.random.default_rng(3).integers(0, 255, (3, 30, 40, 3))
+        im = im.astype(dtype)
+        Tj = j_tps.tps_params(jnp.asarray(src), jnp.asarray(tgt))
+        kw = dict(mode=mode, grid_span=(33, 47))
+        got, mask = tps.tps_warp_with_mask(t(im), t(src), None, (36, 52),
+                                           T=t(Tj), fused_warp=fused, **kw)
+        want, mask_j = j_tps.tps_warp_with_mask(jnp.asarray(im),
+                                                jnp.asarray(src), None,
+                                                (36, 52), T=Tj, **kw)
+        assert got.shape == (3, 36, 52, 3) and got.dtype == torch.float32
+        np.testing.assert_allclose(n(got), n(want), atol=1.0)
+        np.testing.assert_allclose(n(mask), n(mask_j), atol=4e-3)
+        warped = tps.tps_warp(t(im), t(src), t(tgt), (36, 52), **kw)
+        want = j_tps.tps_warp(jnp.asarray(im), jnp.asarray(src),
+                              jnp.asarray(tgt), (36, 52), **kw)
+        np.testing.assert_allclose(n(warped), n(want), atol=1.0)
+
     def test_transform_points_golden_and_jax(self, goldens):
         g = goldens("tps_point")
         got = tps.tps_transform_points(t(g["points"]), t(g["source"]),
