@@ -93,7 +93,23 @@ Phases, each printing one JSON line with its seconds:
     metrics on the card against the CPU and the report
     (``phase_metric``).
 
-Phases 10-12 also hold every kernel that their path runs against its
+13. ``train``: the training path through ``cli.main`` at full width and
+    batch 8, float32: ``train spatial`` (ssd), ``train temporal``,
+    ``export-motions --which both`` with the two trained nets, ``train
+    smooth``, each TRAIN_STEPS steps on TRAIN_VIDEOS jpg clips of
+    TRAIN_FRAMES frames at 360x480, then ``cli stitch`` of one clip with
+    the trained triad through ``--reference_pth_dir``; per stage the step
+    ms, peak memory and K1/K3 launches per step, and a trace of the last
+    step (the card's idle share, the top device operations), with gates
+    on those launches, finite losses and moved parameters and BatchNorm
+    statistics. Before it, the gradient gate: one spatial step at B=2,
+    128x160 on the card against the CPU (loss, every gradient, the TPS
+    term reaching the mesh head), which a planted fault (K3's
+    coordinates detached) must fail. After it, ``TpsCoords``' gradients
+    against autograd through the plain version on the recorded inputs
+    (``phase_train``).
+
+Phases 10-13 also hold every kernel that their path runs against its
 plain version on the card, on the inputs that path gave it (the latest
 call at each of up to HELD_PER_KERNEL shapes, ``PathInputs``): K2 and K3
 exactly, K1 and K4 within the kernels phase's tolerances. The
@@ -178,6 +194,21 @@ HELD_PER_KERNEL = 3
 # float32 metrics on the card against the CPU: the bound of
 # tests/test_torch_metrics.py for the bgr upload against JAX
 METRIC_RTOL = 1e-4
+# the train phase: TRAIN_VIDEOS jpg clips of TRAIN_FRAMES frames at
+# 360x480 (12-frame smooth windows: 11 per clip, 4 batches), each stage
+# TRAIN_STEPS steps at the presets' batch of 8, the last one traced
+TRAIN_VIDEOS = 3
+TRAIN_FRAMES = 22
+TRAIN_STEPS = 4
+# the gradient gate, one spatial step at B=2, 128x160, card against CPU:
+# the loss, and every parameter's gradient in relative L2. The second is
+# float32-conditioned: on the CPU the JAX package's and the port's trunk
+# gradients sit 1.7e-3 and 1.2e-2 from the port's float64 one
+# (tests/test_torch_train_steps.py), and a coordinate kernel without a
+# backward leaves the mesh heads' gradients O(1) off
+GATE_HW = (128, 160)
+GATE_LOSS_RTOL = 1e-4
+GATE_GRAD_RTOL_L2 = 1e-2
 FRAC_DIFF = 1e-2
 FRAC_DIFF_GT1 = 1e-4
 # bf16 against float32 trunks, smooth meshes of the seed-0 random model at
@@ -1187,8 +1218,8 @@ class PathInputs:
     def recording(self):
         import torch
 
-        def copy(x):
-            return x.clone() if torch.is_tensor(x) else x
+        def copy(x):    # the values only: a trainer's inputs carry a graph
+            return x.detach().clone() if torch.is_tensor(x) else x
 
         saved = []
         for name, (mod, attr, users, _, _) in kernel_wrappers().items():
@@ -1606,6 +1637,373 @@ def phase_metric(device, tmp):
             "held_against_plain": plain}
 
 
+def grad_gate_step(net, device, pair, factors):
+    """One spatial loss and backward of ``net`` (train mode) on ``device``:
+    (loss, {name: grad}, the TPS photometric term's gradient on the last
+    layer of the ref mesh head)."""
+    import torch
+
+    from stabstitch2_tpu_torch.config import SpatialTrainConfig
+    from stabstitch2_tpu_torch.train import losses
+    from stabstitch2_tpu_torch.train.spatial import (spatial_loss_fn,
+                                                     spatial_train_outputs)
+
+    a, b = (torch.from_numpy(x).to(device) for x in pair)
+    net.to(device).train()
+    net.zero_grad(set_to_none=True)
+    total, _ = spatial_loss_fn(net, a, b, factors,
+                               SpatialTrainConfig(batch_size=2))
+    total.backward()
+    grads = {k: p.grad.detach().double().cpu()
+             for k, p in net.named_parameters()}
+    out = spatial_train_outputs(net, a, b, factors)
+    term = losses.tps_photometric_loss(out["output_tps_ref"],
+                                       out["output_tps_tgt"])
+    w = net.regressNet2_part2_ref[4].weight
+    g = (torch.autograd.grad(term, [w], allow_unused=True)[0]
+         if term.requires_grad else None)
+    tps_grad = 0.0 if g is None else float(g.abs().sum())
+    return float(total.detach()), grads, tps_grad
+
+
+def grad_gap(grads, ref):
+    """Per parameter, |g - ref| / |ref| in L2."""
+    return {k: float((grads[k] - ref[k]).norm() / ref[k].norm())
+            for k in ref}
+
+
+def train_grad_gate(device) -> dict:
+    """One spatial step at B=2, GATE_HW, from the same weights and
+    augmentation factors on the card and on the CPU. Gates: the loss
+    within GATE_LOSS_RTOL, every gradient within GATE_GRAD_RTOL_L2, the
+    TPS photometric term alone reaching the ref mesh head's last layer;
+    and the planted fault, K3's coordinates detached (a coordinate kernel
+    without a backward), must break the bound."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from stabstitch2_tpu_torch.models import SpatialNet
+    from stabstitch2_tpu_torch.models.backbone import init_weights
+    from stabstitch2_tpu_torch.ops import tps_coords_cuda
+    from stabstitch2_tpu_torch.train.common import draw_aug
+    from synthetic import make_two_view_clip
+
+    h, w = GATE_HW
+    v1, v2 = make_two_view_clip(num_frames=2, height=h, width=w, overlap=0.6,
+                                shake_px=2.0, seed=0)
+    pair = (v1.astype(np.float32) / 127.5 - 1.0,
+            v2.astype(np.float32) / 127.5 - 1.0)
+    net = SpatialNet(h, w)
+    init_weights(net, torch.Generator().manual_seed(0))
+    factors = draw_aug(torch.Generator().manual_seed(0))
+    # the CPU reference on one thread: with two, a CPU-only PyTorch build
+    # read the trunk's backward ~1e-3 off its one- and four-thread result
+    # (tests/test_torch_train_steps.py)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        loss_cpu, g_cpu, tps_cpu = grad_gate_step(copy.deepcopy(net), "cpu",
+                                                  pair, factors)
+    finally:
+        torch.set_num_threads(threads)
+    loss_card, g_card, tps_card = grad_gate_step(copy.deepcopy(net), device,
+                                                 pair, factors)
+    real = tps_coords_cuda.tps_coords
+    tps_coords_cuda.tps_coords = (
+        lambda T, s, size, grid_span=None: real(T.detach(), s.detach(),
+                                                size, grid_span))
+    try:
+        loss_f, g_fault, tps_fault = grad_gate_step(copy.deepcopy(net),
+                                                    device, pair, factors)
+    finally:
+        tps_coords_cuda.tps_coords = real
+    gap, gap_f = grad_gap(g_card, g_cpu), grad_gap(g_fault, g_cpu)
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    worst = max(gap, key=gap.get)
+    worst_f = max(gap_f, key=gap_f.get)
+    require(loss_rel <= GATE_LOSS_RTOL,
+            f"train gate: loss card {loss_card} vs CPU {loss_cpu}")
+    require(gap[worst] <= GATE_GRAD_RTOL_L2,
+            f"train gate: gradient of {worst} {gap[worst]} off the CPU's")
+    require(tps_card > 0 and tps_cpu > 0,
+            f"train gate: the TPS term reaches the mesh head (card "
+            f"{tps_card}, CPU {tps_cpu})")
+    require(gap_f[worst_f] > GATE_GRAD_RTOL_L2 and tps_fault == 0.0,
+            f"train gate: the planted fault (K3 detached) passes: "
+            f"{worst_f} {gap_f[worst_f]}, TPS-term grad {tps_fault}")
+    return {"shape": [2, h, w], "loss_card": loss_card, "loss_cpu": loss_cpu,
+            "loss_rel_gap": loss_rel, "loss_rtol": GATE_LOSS_RTOL,
+            "grad_worst": [worst, gap[worst]],
+            "grad_rtol_l2": GATE_GRAD_RTOL_L2,
+            "grad_median": float(np.median(list(gap.values()))),
+            "tps_term_head_grad_card": tps_card,
+            "tps_term_head_grad_cpu": tps_cpu,
+            "fault_k3_detached": {"grad_worst": [worst_f, gap_f[worst_f]],
+                                  "tps_term_head_grad": tps_fault,
+                                  "loss": loss_f}}
+
+
+def tps_grads_held(held) -> list:
+    """K3's ``TpsCoords`` gradients against autograd through
+    ``tps_coords_plain`` on the recorded train inputs, with seeded
+    cotangents: equal, since the backward is that autograd. Also the
+    host-clock ms of that backward (3 runs, each between two waits). Its
+    own launches are taken off the count again."""
+    import torch
+
+    from stabstitch2_tpu_torch.ops import tps_coords_cuda
+
+    launches = collections.Counter(tps_coords_cuda.LAUNCHES)
+    rows = []
+    for args, kwargs in held.calls["tps_coords"].values():
+        B, n = args[0].shape[0], args[2][0] * args[2][1]
+        gen = torch.Generator(device=args[0].device).manual_seed(0)
+        cot = [torch.randn(B, n, generator=gen, device=args[0].device)
+               for _ in range(2)]
+        grads, fns = [], []
+        for fn in (tps_coords_cuda.tps_coords,
+                   tps_coords_cuda.tps_coords_plain):
+            T, src = (a.clone().requires_grad_(True) for a in args[:2])
+            xs, ys = fn(T, src, *args[2:], **kwargs)
+            fns.append(type(xs.grad_fn).__name__)
+            torch.autograd.backward((xs, ys), cot)
+            grads.append((T.grad, src.grad))
+        require(fns[0].startswith("TpsCoords"),
+                f"K3 with grad goes through TpsCoords, not {fns[0]}")
+        backward_ms = []        # K3's plain backward, host clock
+        for _ in range(3):
+            T, src = (a.clone().requires_grad_(True) for a in args[:2])
+            xs, ys = tps_coords_cuda.tps_coords(T, src, *args[2:], **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.autograd.backward((xs, ys), cot)
+            torch.cuda.synchronize()
+            backward_ms.append(1e3 * (time.perf_counter() - t0))
+        equal = all(torch.equal(a, b) for a, b in zip(*grads))
+        err = max(float((a - b).abs().max()) for a, b in zip(*grads))
+        rows.append({"shapes": [list(args[0].shape), list(args[1].shape)],
+                     "out_size": list(args[2]), "grad_fn": fns[0],
+                     "grads_equal": equal, "max_abs_err": err,
+                     "backward_ms": backward_ms})
+        require(equal, f"TpsCoords gradients vs plain autograd: {err}")
+    tps_coords_cuda.LAUNCHES.clear()
+    tps_coords_cuda.LAUNCHES.update(launches)
+    return rows
+
+
+def stage_recorder(net_steps: dict):
+    """An ``on_step`` hook that waits for the card after each step and
+    records the host time, the peak memory and the kernels' counts."""
+    import torch
+
+    from stabstitch2_tpu_torch.ops import corr_cuda, tps_coords_cuda
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        net_steps.setdefault("t", []).append(time.perf_counter())
+        net_steps.setdefault("loss", []).append(float(metrics["total"]))
+        net_steps.setdefault("k1_r5", []).append(corr_cuda.LAUNCHES[5])
+        net_steps.setdefault("k1_r3", []).append(corr_cuda.LAUNCHES[3])
+        net_steps.setdefault("k3", []).append(
+            tps_coords_cuda.LAUNCHES["tps_coords"])
+
+    return on_step
+
+
+def traced_step(fn, trace_dir: str, which: int):
+    """``fn`` with its ``which``-th call (from 1) traced into
+    ``trace_dir`` (``utils/profiling.py:trace``)."""
+    from stabstitch2_tpu_torch.utils.profiling import trace
+
+    calls = [0]
+
+    def step(*args, **kwargs):
+        calls[0] += 1
+        if calls[0] != which:
+            return fn(*args, **kwargs)
+        with trace(trace_dir):
+            return fn(*args, **kwargs)
+
+    return step
+
+
+def stage_report(rec: dict, t0: float, start_launches) -> dict:
+    """Step ms (median of the untraced steps after the first), launches
+    per step and the losses."""
+    import numpy as np
+    import torch
+
+    times = [t0] + rec["t"]
+    ms = [1e3 * (b - a) for a, b in zip(times, times[1:])]
+    per_step = {}
+    for k in ("k1_r5", "k1_r3", "k3"):
+        counts = [start_launches[k]] + rec[k]
+        per_step[k] = [b - a for a, b in zip(counts, counts[1:])]
+    return {"steps": len(ms), "step_ms": ms,
+            "step_ms_median_after_first": float(np.median(ms[1:-1])),
+            "launches_per_step": per_step, "loss": rec["loss"],
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def moved(net_cls, seed, sd) -> dict:
+    """Whether the trained state_dict ``sd`` left the initial weights of
+    ``seed`` (parameters) and the identity BatchNorm statistics."""
+    import torch
+
+    from stabstitch2_tpu_torch.models.backbone import init_weights
+
+    init = net_cls()
+    init_weights(init, torch.Generator().manual_seed(seed))
+    ref = init.state_dict()
+    params = dict(init.named_parameters())
+    changed = {k for k, v in sd.items()
+               if v.dtype.is_floating_point and not torch.equal(v.cpu(),
+                                                                ref[k])}
+    stats = [k for k in ref if k.endswith(("running_mean", "running_var"))]
+    return {"params_moved": sum(k in changed for k in params),
+            "params": len(params),
+            "bn_stats_moved": sum(k in changed for k in stats),
+            "bn_stats": len(stats)}
+
+
+def phase_train(device, tmp):
+    """The training path through ``cli.main``: ``train spatial`` (ssd),
+    ``train temporal``, ``export-motions --which both`` (the two trained
+    nets) and ``train smooth``, each TRAIN_STEPS steps at full width and
+    batch 8 on TRAIN_VIDEOS synthetic jpg clips of TRAIN_FRAMES frames at
+    360x480; then ``cli stitch`` of one clip with the trained triad
+    through ``--reference_pth_dir``. Per stage the counts are set to 0
+    just before and read just after; a hook waits for the card after each
+    step and records the time, the counts and the peak memory. Gates:
+    K1 and K3 launched per step as the recipe says, finite losses,
+    parameters and BatchNorm statistics moved, the export's files, the
+    stitched mp4's frames; the gradient gate (:func:`train_grad_gate`);
+    K1 and K3 held against their plain versions on the train inputs and
+    ``TpsCoords``' gradients against autograd through the plain version
+    (:func:`tps_grads_held`)."""
+    import functools
+    import importlib
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from stabstitch2_tpu_torch import cli
+    from stabstitch2_tpu_torch.models import SmoothNet, SpatialNet, TemporalNet
+    from stabstitch2_tpu_torch.ops import corr_cuda, tps_coords_cuda
+    from stabstitch2_tpu_torch.train import loop
+    from stabstitch2_tpu_torch.utils.checkpoint import TrainCheckpointer
+    from synthetic import write_clip_dirs
+
+    t_gate = time.perf_counter()
+    gate = train_grad_gate(device)
+    gate["seconds"] = time.perf_counter() - t_gate
+
+    data = os.path.join(tmp, "train")
+    for i in range(TRAIN_VIDEOS):
+        write_clip_dirs(data, num_frames=TRAIN_FRAMES, height=FRAME_HW[0],
+                        width=FRAME_HW[1], seed=30 + i, video_name=f"v{i}")
+    triad = os.path.join(tmp, "triad")
+    os.makedirs(triad)
+    held = PathInputs()
+    stages = {}
+    # per step: K1 r=5, K1 r=3, K3 launches the recipe makes
+    want = {"spatial": (2, 0, 2), "temporal": (0, 1, 1), "smooth": (0, 0, 8)}
+    nets = {"spatial": SpatialNet, "temporal": TemporalNet,
+            "smooth": SmoothNet}
+    files = {"spatial": "spatial_warp.pth", "temporal": "temporal_warp.pth",
+             "smooth": "smooth_warp.pth"}
+    real = {k: getattr(loop, f"train_{k}") for k in nets}
+
+    def train(stage):
+        rec = {}
+        setattr(loop, f"train_{stage}",
+                functools.partial(real[stage], on_step=stage_recorder(rec)))
+        step_mod = importlib.import_module(
+            f"stabstitch2_tpu_torch.train.{stage}")
+        step_name = f"{stage}_train_step"
+        step_fn = getattr(step_mod, step_name)
+        trace_dir = os.path.join(tmp, f"trace_{stage}")
+        setattr(step_mod, step_name,
+                traced_step(step_fn, trace_dir, TRAIN_STEPS))
+        model_dir = os.path.join(tmp, f"model_{stage}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        corr_cuda.LAUNCHES.clear()
+        tps_coords_cuda.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        try:
+            with held.recording():
+                rc = cli.main(["train", stage, "--train_path", data,
+                               "--model_dir", model_dir, "--max_epoch", "1",
+                               "--max_steps_per_epoch", str(TRAIN_STEPS)])
+        finally:
+            setattr(loop, f"train_{stage}", real[stage])
+            setattr(step_mod, step_name, step_fn)
+        wall = time.perf_counter() - t0
+        require(rc == 0 and len(rec.get("t", ())) == TRAIN_STEPS,
+                f"train {stage}: rc {rc}, steps {len(rec.get('t', ()))}")
+        info = stage_report(rec, t0, {"k1_r5": 0, "k1_r3": 0, "k3": 0})
+        info["wall_s"] = wall
+        traces = sorted(glob.glob(os.path.join(trace_dir, "*.json")))
+        require(len(traces) == 1, f"train {stage}: one traced step {traces}")
+        info["traced_step"] = trace_stats(traces[0])[0] if traces else None
+        per = info["launches_per_step"]
+        got = tuple(per[k] for k in ("k1_r5", "k1_r3", "k3"))
+        require(all(list(n) == [w] * TRAIN_STEPS for n, w in zip(got, want[
+            stage])), f"train {stage}: launches per step {per}, want "
+                      f"{want[stage]}")
+        require(all(np.isfinite(info["loss"])), f"train {stage}: losses "
+                                                f"{info['loss']}")
+        ck = TrainCheckpointer(model_dir)
+        payload = ck.restore()
+        require(payload is not None and payload["step"] == TRAIN_STEPS,
+                f"train {stage}: checkpoints {ck.steps()}")
+        info.update(moved(nets[stage], 0, payload["model"]))
+        require(info["params_moved"] > 0
+                and info["bn_stats_moved"] == info["bn_stats"],
+                f"train {stage}: moved {info}")
+        shutil.copy(ck.path(ck.latest_step()),
+                    os.path.join(triad, files[stage]))
+        stages[stage] = info
+
+    train("spatial")
+    train("temporal")
+    t0 = time.perf_counter()
+    rc = cli.main(["export-motions", "--train_path", data, "--which", "both",
+                   "--reference_pth_dir", triad])
+    export_s = time.perf_counter() - t0
+    counts = {d: len(os.listdir(os.path.join(data, "v0", d)))
+              for d in ("SpatialMotion1", "SpatialMotion2",
+                        "TemporalMotion1", "TemporalMotion2")}
+    require(rc == 0 and set(counts.values()) == {TRAIN_FRAMES},
+            f"export-motions rc {rc}, files {counts}")
+    train("smooth")
+
+    one = os.path.join(tmp, "one")
+    shutil.copytree(os.path.join(data, "v0"), os.path.join(one, "v0"))
+    out = os.path.join(tmp, "stitched")
+    t0 = time.perf_counter()
+    rc = cli.main(["stitch", "--test_path", one, "--output_path", out,
+                   "--reference_pth_dir", triad])
+    stitch_s = time.perf_counter() - t0
+    n_mp4 = mp4_frames(os.path.join(out, "v0.mp4"))
+    require(rc == 0 and n_mp4 == TRAIN_FRAMES,
+            f"stitch with the trained triad: rc {rc}, {n_mp4} frames")
+
+    plain = held.hold(("cost_volume", "tps_coords"), "train")
+    tps_grads = tps_grads_held(held)
+    return {"phase": "train", "videos": TRAIN_VIDEOS,
+            "frames": TRAIN_FRAMES, "frame_hw": list(FRAME_HW),
+            "batch": 8, "steps": TRAIN_STEPS, "dtype": "float32",
+            "stages": stages, "export_s": export_s,
+            "export_files_per_stream": counts, "stitch_s": stitch_s,
+            "stitched_mp4_frames": n_mp4, "grad_gate": gate,
+            "held_against_plain": plain, "tps_coords_grads": tps_grads}
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -1705,7 +2103,7 @@ def main() -> int:
     cmp_["seconds"] = time.perf_counter() - t
     emit(cmp_)
 
-    for run in (phase_online, phase_multi, phase_metric):
+    for run in (phase_online, phase_multi, phase_metric, phase_train):
         with tempfile.TemporaryDirectory() as tmp:
             t = time.perf_counter()
             info = run(device, tmp)

@@ -1,5 +1,5 @@
 """Command-line entry point of the port: ``stitch``, ``stitch-multi``,
-``metric``.
+``metric``, ``train`` and ``export-motions``.
 
     python -m stabstitch2_tpu_torch.cli stitch --test_path <dataset> \
         --output_path <dir> [--trace_dir <dir>] [shared flags]
@@ -7,6 +7,14 @@
         --output <mp4 or dir> [shared flags]
     python -m stabstitch2_tpu_torch.cli metric --test_path <dataset> \
         [--max_videos N] [--out_json <file>] [shared flags]
+
+    python -m stabstitch2_tpu_torch.cli train {spatial,temporal,smooth} \
+        --train_path <dataset> [--test_path <dataset>] [--preset ssd|tra] \
+        [--model_dir <dir>] [--summary_dir <dir>] [--max_epoch N] \
+        [--max_steps_per_epoch N] [--vgg_pth <file>] [--device cuda|cpu] \
+        [--seed N]
+    python -m stabstitch2_tpu_torch.cli export-motions --train_path <dataset> \
+        [--which spatial|temporal|both] [shared flags]
 
 Shared flags: [--reference_pth_dir <dir>] [--preset ssd|tra]
 [--fusion_mode AVERAGE|LINEAR] [--warp_mode NORMAL|FAST] [--chunk N]
@@ -27,6 +35,20 @@ same defaults; clip k+1 is begun before clip k is finished.
 
 ``metric``: PSNR, SSIM, stability and distortion per video, per
 StabStitch-D category and on average, from uint8 BGR uploads by default.
+
+``train``: one stage's trainer (``train/loop.py``), float32 with TF32
+off, writing ``step_<N>.pth`` checkpoints to ``--model_dir`` (default
+``model_<stage>_<preset>``) and resuming from the latest there. A
+trainer's checkpoint is a reference-style ``{'model': state_dict, ...}``
+file: copied into one directory as ``spatial_warp.pth``,
+``temporal_warp.pth`` and ``smooth_warp.pth``, the three load through
+``--reference_pth_dir``. The tra preset's perceptual term needs
+torchvision's VGG-19 weights (``--vgg_pth``).
+
+``export-motions``: the stitcher's spatial and temporal nets write the
+Spatial/TemporalMotion npy streams the smooth trainer reads; with
+``--reference_pth_dir`` only ``spatial_warp.pth`` and
+``temporal_warp.pth`` need to exist there.
 
 Without ``--reference_pth_dir`` the models carry random weights drawn
 from ``--seed``.
@@ -172,23 +194,31 @@ def mp4_sink(output_path: str) -> Callable[[str, object], None]:
     return sink
 
 
-def build_stitcher(args):
-    """The stitcher of the shared flags (:func:`add_stitcher_args`)."""
+def no_tf32() -> None:
+    """float32 means float32 where it runs (SmoothNet, the geometry, the
+    trainers and float32 parity runs): no TF32 convolutions or products."""
     import torch
 
-    from stabstitch2_tpu_torch.config import StitchConfig, preset_fusion_mode
-    from stabstitch2_tpu_torch.utils.checkpoint import stitcher_from_checkpoint
-
-    # float32 means float32 where it runs (SmoothNet, the geometry, and
-    # the trunks of float32 parity runs): no TF32 convolutions or products
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def build_stitcher(args, files=None):
+    """The stitcher of the shared flags (:func:`add_stitcher_args`);
+    ``files`` limits the ``.pth`` files read from ``--reference_pth_dir``
+    (default: the triad)."""
+    from stabstitch2_tpu_torch.config import StitchConfig, preset_fusion_mode
+    from stabstitch2_tpu_torch.utils.checkpoint import (TRIAD,
+                                                        stitcher_from_checkpoint)
+
+    no_tf32()
     config = StitchConfig(
         fusion_mode=preset_fusion_mode(args.preset, args.fusion_mode),
         warp_mode=args.warp_mode, download_format=args.download_format)
     stitcher = stitcher_from_checkpoint(
-        reference_pth_dir=args.reference_pth_dir, rng_seed=args.seed,
-        config=config, chunk=args.chunk, device=args.device)
+        reference_pth_dir=args.reference_pth_dir, files=files or TRIAD,
+        rng_seed=args.seed, config=config, chunk=args.chunk,
+        device=args.device)
     stitcher.sync_phases = not args.no_phase_sync
     return stitcher
 
@@ -296,6 +326,57 @@ def cmd_metric(args) -> int:
     return 0
 
 
+def cmd_train(args) -> int:
+    import dataclasses
+
+    from stabstitch2_tpu_torch import config as C
+    from stabstitch2_tpu_torch.train import loop
+
+    no_tf32()
+    presets = {"spatial": C.spatial_train_preset,
+               "temporal": C.temporal_train_preset,
+               "smooth": C.smooth_train_preset}
+    cfg = presets[args.stage](args.preset)
+    if args.max_epoch:
+        cfg = dataclasses.replace(cfg, max_epoch=args.max_epoch)
+    common = dict(model_dir=args.model_dir, summary_dir=args.summary_dir,
+                  seed=args.seed, max_steps_per_epoch=args.max_steps_per_epoch,
+                  n_devices=args.n_devices, device=args.device)
+    if args.stage == "spatial":
+        vgg = None
+        # the ~550 MB state_dict is read only when the recipe uses it
+        if args.vgg_pth and cfg.perception_weight > 0:
+            import torch
+
+            from stabstitch2_tpu_torch.models.vgg import vgg19_state_dict
+
+            vgg = vgg19_state_dict(torch.load(args.vgg_pth,
+                                              map_location="cpu",
+                                              weights_only=True))
+        loop.train_spatial(args.train_path, args.test_path, cfg,
+                           vgg_state_dict=vgg, **common)
+    elif args.stage == "temporal":
+        loop.train_temporal(args.train_path, cfg, **common)
+    else:
+        loop.train_smooth(args.train_path, cfg, **common)
+    return 0
+
+
+def cmd_export(args) -> int:
+    from stabstitch2_tpu_torch.train.export import (export_spatial_motions,
+                                                    export_temporal_motions)
+    from stabstitch2_tpu_torch.utils.checkpoint import TRIAD
+
+    stitcher = build_stitcher(args, files=TRIAD[:2])
+    if args.which in ("spatial", "both"):
+        n = export_spatial_motions(stitcher, args.train_path)
+        print(f"exported {n} spatial motion frames")
+    if args.which in ("temporal", "both"):
+        n = export_temporal_motions(stitcher, args.train_path)
+        print(f"exported {n} temporal motion frames")
+    return 0
+
+
 def add_stitcher_args(p: argparse.ArgumentParser, download: str,
                       upload: str) -> None:
     """The flags every command shares: the stitcher and its config, the
@@ -321,6 +402,10 @@ def add_stitcher_args(p: argparse.ArgumentParser, download: str,
     p.add_argument("--no_phase_sync", action="store_true",
                    help="enqueue each video without the per-phase waits "
                         "(the phase ms become enqueue times)")
+    add_device_args(p)
+
+
+def add_device_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
     p.add_argument("--seed", type=int, default=0,
@@ -361,11 +446,46 @@ def make_parser() -> argparse.ArgumentParser:
                    help="write the report, per video included, here")
     add_stitcher_args(p, download="bgr", upload="bgr")
     p.set_defaults(fn=cmd_metric)
+
+    p = sub.add_parser("train", help="train one stage")
+    p.add_argument("stage", choices=["spatial", "temporal", "smooth"])
+    p.add_argument("--train_path", required=True,
+                   help="dataset directory of <video>/video1+video2 jpgs "
+                        "(smooth: with the export-motions streams)")
+    p.add_argument("--test_path", default=None,
+                   help="spatial: score SSIM here after each epoch and keep "
+                        "the best checkpoint")
+    p.add_argument("--preset", choices=["ssd", "tra"], default="ssd",
+                   help="the reference recipe")
+    p.add_argument("--model_dir", default=None,
+                   help="checkpoint directory (default model_<stage>_<preset>)")
+    p.add_argument("--summary_dir", default=None,
+                   help="tensorboard scalars here (needs tensorboardX)")
+    p.add_argument("--max_epoch", type=int, default=None)
+    p.add_argument("--max_steps_per_epoch", type=int, default=None)
+    p.add_argument("--vgg_pth", default=None,
+                   help="torchvision vgg19 state_dict (.pth) for the tra "
+                        "recipe's perceptual term (spatial stage); required "
+                        "when the preset weighs it")
+    p.add_argument("--n_devices", type=int, default=None,
+                   help="more than 1 is not ported yet (raises)")
+    add_device_args(p)
+    p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("export-motions",
+                       help="write the Spatial/TemporalMotion npy streams")
+    p.add_argument("--train_path", required=True)
+    p.add_argument("--which", choices=["spatial", "temporal", "both"],
+                   default="both")
+    add_stitcher_args(p, download="bgr", upload="bgr")
+    p.set_defaults(fn=cmd_export)
     return parser
 
 
 def main(argv=None) -> int:
     args = make_parser().parse_args(argv)
+    if args.cmd == "train" and args.model_dir is None:
+        args.model_dir = f"model_{args.stage}_{args.preset}"
     return args.fn(args)
 
 

@@ -1,8 +1,10 @@
-"""Configuration of the two-view stitch path.
+"""Configuration of the stitch paths and of the three trainers.
 
-Own copy of the constants and the ``StitchConfig`` fields the main path
-reads (the JAX package's ``config.py``): grid 6x8 (7x9 control points),
-360x480 model input, a 7-frame smoothing window.
+Own copy of the JAX package's ``config.py``: the constants (grid 6x8, so
+7x9 control points, 360x480 model input, a 7-frame smoothing window), the
+``StitchConfig`` fields the stitch paths read, and the trainers' recipes
+(``TrainConfig`` and one subclass per stage) with their ``ssd``/``tra``
+presets.
 """
 
 from __future__ import annotations
@@ -80,3 +82,73 @@ class StitchConfig:
         if int(self.coord_stride) != self.coord_stride or self.coord_stride < 1:
             raise ValueError(f"coord_stride must be an int >= 1, got "
                              f"{self.coord_stride!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The optimizer recipe every reference trainer shares: global-norm
+    gradient clipping at 3.0, then Adam(1e-4, (0.9, 0.999), eps 1e-8), the
+    rate decayed by 0.97 per epoch."""
+
+    learning_rate: float = 1e-4
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    lr_decay_per_epoch: float = 0.97
+    grad_clip_norm: float = 3.0
+    batch_size: int = 8
+    max_epoch: int = 40
+
+
+@dataclasses.dataclass(frozen=True)
+class SpatialTrainConfig(TrainConfig):
+    # ssd: overlap + 10 * (inter + intra) per view, no perceptual term;
+    # tra: grid weight 5 and perceptual weight 1e-3
+    grid_weight: float = 10.0
+    perception_weight: float = 0.0
+    max_epoch: int = 40
+
+
+@dataclasses.dataclass(frozen=True)
+class TemporalTrainConfig(TrainConfig):
+    # overlap + 5 * inter + 5 * intra
+    grid_weight: float = 5.0
+    max_epoch: int = 100
+    train_frame_num: int = 4  # window the random-gap pair is drawn from
+
+
+@dataclasses.dataclass(frozen=True)
+class SmoothTrainConfig(TrainConfig):
+    # 1 * data + 50 * smooth + 10 * shape + 1 * trajectory + 0.1 * online
+    # + 1000 * align
+    data_weight: float = 1.0
+    smooth_weight: float = 50.0
+    shape_weight: float = 10.0
+    trajectory_weight: float = 1.0
+    online_weight: float = 0.1
+    align_weight: float = 1000.0
+    frame_num: int = 7
+    train_sqe: int = 2
+    train_frame_num: int = 12  # videos shorter than this are skipped
+    max_epoch: int = 50
+
+
+def spatial_train_preset(name: str) -> SpatialTrainConfig:
+    if name == "ssd":
+        return SpatialTrainConfig()
+    if name == "tra":
+        return SpatialTrainConfig(grid_weight=5.0, perception_weight=1e-3,
+                                  max_epoch=80)
+    raise ValueError(f"unknown preset {name!r}")
+
+
+def temporal_train_preset(name: str) -> TemporalTrainConfig:
+    if name in ("ssd", "tra"):
+        return TemporalTrainConfig()
+    raise ValueError(f"unknown preset {name!r}")
+
+
+def smooth_train_preset(name: str) -> SmoothTrainConfig:
+    if name in ("ssd", "tra"):
+        return SmoothTrainConfig()
+    raise ValueError(f"unknown preset {name!r}")

@@ -21,6 +21,12 @@ normalizes in float32 and rounds the result to bfloat16: what Flax's
 ``BatchNorm(dtype=bfloat16)`` does (it promotes to float32 and casts
 back), and what PyTorch's batch_norm does on both devices for a
 bfloat16 input with float32 parameters.
+
+BatchNorm in train mode follows Flax's ``BatchNorm(momentum=0.9,
+epsilon=1e-5)`` (:class:`BatchNorm2d`): it normalizes with the batch's
+biased statistics and keeps the running mean and the running *biased*
+variance (``nn.BatchNorm2d`` keeps the unbiased one). Eval mode and the
+state_dict keys are ``nn.BatchNorm2d``'s.
 """
 
 from __future__ import annotations
@@ -63,6 +69,36 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
 
 
+# Flax's BatchNorm momentum: running = m * running + (1 - m) * batch
+FLAX_BN_MOMENTUM = 0.9
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (eps 1e-5) with Flax's train-mode statistics.
+
+    Train mode normalizes with the batch mean and biased variance, through
+    which gradients flow, and updates the running statistics as Flax does:
+    the mean and the variance ``E[x^2] - E[x]^2`` (clipped at 0), each
+    blended with momentum 0.9. Eval mode is ``nn.BatchNorm2d``'s.
+    """
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
+            m = FLAX_BN_MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 def _cast(p, dtype):
     return None if p is None else p.to(dtype)
 
@@ -78,15 +114,15 @@ class BasicBlock(nn.Module):
     def __init__(self, cin: int, cout: int, stride: int = 1):
         super().__init__()
         self.conv1 = Conv2d(cin, cout, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(cout)
+        self.bn1 = BatchNorm2d(cout)
         self.relu = nn.ReLU()
         self.conv2 = Conv2d(cout, cout, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(cout)
+        self.bn2 = BatchNorm2d(cout)
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(
                 Conv2d(cin, cout, 1, stride, bias=False),
-                nn.BatchNorm2d(cout))
+                BatchNorm2d(cout))
 
     def forward(self, x):
         idt = x if self.downsample is None else self.downsample(x)
@@ -99,7 +135,7 @@ class ResNetStage1(nn.Sequential):
 
     def __init__(self, compute_dtype: torch.dtype = torch.float32):
         super().__init__(
-            Conv2d(3, 64, 7, 2, 3, bias=False), nn.BatchNorm2d(64),
+            Conv2d(3, 64, 7, 2, 3, bias=False), BatchNorm2d(64),
             nn.ReLU(), nn.MaxPool2d(3, 2, 1),
             nn.Sequential(BasicBlock(64, 64), BasicBlock(64, 64)),
             nn.Sequential(BasicBlock(64, 128, 2), BasicBlock(128, 128)))

@@ -12,7 +12,10 @@ any source pixel from global memory, so nothing can overflow and the
 returned ``viol`` is always False.
 
 On a CPU tensor the wrapper runs :func:`fused_warp_planes_plain`; on a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel or raises. The kernel has no backward,
+so a CUDA launch with grad enabled and a ``T`` or ``source`` that requires
+grad raises rather than drop the gradient; the trainers warp float
+images, which take the coordinate kernel K3 and its backward instead.
 """
 
 from __future__ import annotations
@@ -92,6 +95,11 @@ def fused_warp_planes(im: torch.Tensor, T: torch.Tensor,
         return fused_warp_planes_plain(im, T, source, out_size, grid_span)
     if im.device.type != "cuda":
         raise ValueError(f"unsupported device {im.device}")
+    if torch.is_grad_enabled() and (T.requires_grad or source.requires_grad):
+        raise RuntimeError(
+            "fused_warp_planes: the fused warp kernel has no backward, and T "
+            "or source requires grad; warp a float image (the coordinate "
+            "kernel, which has one) or call under torch.no_grad()")
     from stabstitch2_tpu_torch.utils.cuda_build import check_launch, load_kernels
 
     if not (im.is_contiguous() and T.is_contiguous()

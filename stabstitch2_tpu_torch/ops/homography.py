@@ -11,7 +11,7 @@ from typing import Tuple
 
 import torch
 
-from stabstitch2_tpu_torch.ops.interp import bilinear_sample
+from stabstitch2_tpu_torch.ops.interp import bilinear_mask, bilinear_sample
 from stabstitch2_tpu_torch.utils.transfer import constant
 
 
@@ -45,6 +45,17 @@ def homo_warp(im: torch.Tensor, theta: torch.Tensor,
     B, _, _, C = im.shape
     x_s, y_s = homo_sample_coords(theta, out_size)
     return bilinear_sample(im, x_s, y_s).reshape(B, *out_size, C)
+
+
+def homo_warp_with_mask(im: torch.Tensor, theta: torch.Tensor,
+                        out_size: Tuple[int, int]
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`homo_warp` and its coverage mask [B, oh, ow]: the warp of an
+    all-ones channel, computed from the sample coordinates."""
+    B, H, W, C = im.shape
+    x_s, y_s = homo_sample_coords(theta, out_size)
+    sampled = bilinear_sample(im, x_s, y_s).reshape(B, *out_size, C)
+    return sampled, bilinear_mask(H, W, x_s, y_s).reshape(B, *out_size)
 
 
 def normalize_homography(H: torch.Tensor, height: float,

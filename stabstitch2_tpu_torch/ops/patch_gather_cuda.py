@@ -13,7 +13,9 @@ XLA combined, so both are the interleaved output here; ``planes`` is the
 planar one.
 
 On a CPU tensor the wrapper runs :func:`patch_gather_plain`; on a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises. The kernel has no backward, so a
+CUDA launch with grad enabled and coordinates that require grad raises
+rather than drop the gradient.
 """
 
 from __future__ import annotations
@@ -75,6 +77,11 @@ def bilinear_sample_patch_u8_cuda(im: torch.Tensor, x: torch.Tensor,
         return patch_gather_plain(im, x, y, out_hw, planes)
     if im.device.type != "cuda":
         raise ValueError(f"unsupported device {im.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
+        raise RuntimeError(
+            "bilinear_sample_patch_u8_cuda: the patch-gather kernel has no "
+            "backward, and x or y requires grad; sample a float image or "
+            "call under torch.no_grad()")
     from stabstitch2_tpu_torch.utils.cuda_build import check_launch, load_kernels
 
     if not (im.is_contiguous() and x.is_contiguous() and y.is_contiguous()):

@@ -6,7 +6,11 @@ every canvas pixel, without the [B, P+3, H*W] radial basis. The TPU
 kernel's (8, W) row tiles and padded rows are not carried over.
 
 On a CPU tensor the wrapper runs :func:`ops.tps.tps_coords_plain`; on a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel or raises. Where ``T`` or ``source``
+requires grad, the launch goes through :class:`TpsCoords`, whose backward
+is autograd through the plain version (as ``ops/corr_cuda.py:CostVolume``
+does for K1): the kernel's forward equals the plain version bit for bit,
+so the gradient is the plain route's.
 """
 
 from __future__ import annotations
@@ -36,21 +40,10 @@ def _check(T: torch.Tensor, source: torch.Tensor) -> None:
         raise ValueError("T and source must share a device")
 
 
-def tps_coords(T: torch.Tensor, source: torch.Tensor,
-               out_size: Tuple[int, int],
-               grid_span: Optional[Tuple[float, float]] = None
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """TPS sample coordinates at every pixel of ``out_size``.
-
-    T: [B, 2, P+3]; source: [B, P, 2] (the deformed mesh, normalized);
-    out_size: the (padded) canvas; grid_span: the true canvas extent used
-    for normalization. Returns (x_s, y_s), each float32 [B, oh*ow].
-    """
-    _check(T, source)
-    if T.device.type == "cpu":
-        return tps_coords_plain(T, source, out_size, grid_span=grid_span)
-    if T.device.type != "cuda":
-        raise ValueError(f"unsupported device {T.device}")
+def _launch(T: torch.Tensor, source: torch.Tensor,
+            out_size: Tuple[int, int],
+            grid_span: Optional[Tuple[float, float]]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     from stabstitch2_tpu_torch.utils.cuda_build import check_launch, load_kernels
 
     if not (T.is_contiguous() and source.is_contiguous()):
@@ -75,3 +68,44 @@ def tps_coords(T: torch.Tensor, source: torch.Tensor,
         check_launch("tps_coords_kernel", err)
         LAUNCHES["tps_coords"] += 1
     return xs, ys
+
+
+class TpsCoords(torch.autograd.Function):
+    """K3 forward; backward = autograd through :func:`tps_coords_plain`."""
+
+    @staticmethod
+    def forward(ctx, T, source, out_size, grid_span):
+        ctx.save_for_backward(T, source)
+        ctx.out_size, ctx.grid_span = out_size, grid_span
+        return _launch(T, source, out_size, grid_span)
+
+    @staticmethod
+    def backward(ctx, grad_x, grad_y):
+        T, source = ctx.saved_tensors
+        with torch.enable_grad():
+            t = T.detach().requires_grad_(True)
+            s = source.detach().requires_grad_(True)
+            xs, ys = tps_coords_plain(t, s, ctx.out_size,
+                                      grid_span=ctx.grid_span)
+            gt, gs = torch.autograd.grad((xs, ys), (t, s), (grad_x, grad_y))
+        return gt, gs, None, None
+
+
+def tps_coords(T: torch.Tensor, source: torch.Tensor,
+               out_size: Tuple[int, int],
+               grid_span: Optional[Tuple[float, float]] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """TPS sample coordinates at every pixel of ``out_size``.
+
+    T: [B, 2, P+3]; source: [B, P, 2] (the deformed mesh, normalized);
+    out_size: the (padded) canvas; grid_span: the true canvas extent used
+    for normalization. Returns (x_s, y_s), each float32 [B, oh*ow].
+    """
+    _check(T, source)
+    if T.device.type == "cpu":
+        return tps_coords_plain(T, source, out_size, grid_span=grid_span)
+    if T.device.type != "cuda":
+        raise ValueError(f"unsupported device {T.device}")
+    if T.requires_grad or source.requires_grad:
+        return TpsCoords.apply(T, source, tuple(out_size), grid_span)
+    return _launch(T, source, out_size, grid_span)

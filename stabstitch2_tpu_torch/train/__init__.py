@@ -1,2 +1,2 @@
-"""Losses of the trainers; so far the grid and path terms the metric scores
-use."""
+"""The three trainers (spatial, temporal, smooth), their losses, the
+epoch loops and the motion export between the stages."""

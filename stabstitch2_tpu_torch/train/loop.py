@@ -1,0 +1,278 @@
+"""Epoch loops of the three trainers (port of ``train/loop.py``).
+
+Each loop builds its net with random weights from ``seed`` (the same
+draws on every device), resumes from the latest ``step_<N>.pth`` in
+``model_dir``, and runs ``max_epoch`` epochs of at most
+``max_steps_per_epoch`` steps over a threaded batch iterator. Per step
+the augmentation factors are drawn on the CPU from a generator seeded
+with ``seed``, so the card and the CPU train on the same draws. Like the
+reference trainers: the spatial loop scores SSIM on every 20th test
+sample after each epoch and saves when it improves (the best score in a
+``best_ssim.json`` sidecar, so a resumed run keeps it), or every epoch
+without a test set; the temporal loop saves every 20 epochs, the smooth
+loop every 10, both at the last. ``summary_dir`` imports tensorboardX
+only when it is given. ``on_step(step, metrics)``, when given, is called
+after every step (the metrics are tensors on the device, not waited on).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from stabstitch2_tpu_torch.config import (SmoothTrainConfig,
+                                          SpatialTrainConfig,
+                                          TemporalTrainConfig)
+from stabstitch2_tpu_torch.data.datasets import (SmoothWindowDataset,
+                                                 SpatialPairDataset,
+                                                 TemporalPairDataset,
+                                                 batch_iterator)
+from stabstitch2_tpu_torch.models import SmoothNet, SpatialNet, TemporalNet
+from stabstitch2_tpu_torch.models.backbone import init_weights
+from stabstitch2_tpu_torch.train.common import Optimizer, draw_aug, make_optimizer
+from stabstitch2_tpu_torch.utils.checkpoint import TrainCheckpointer
+
+OnStep = Optional[Callable[[int, Dict[str, torch.Tensor]], None]]
+
+
+@dataclasses.dataclass
+class TrainRun:
+    """What a loop leaves: the trained net (train mode), its optimizer
+    (whose ``step_count`` is the global step) and the last step's loss
+    terms."""
+
+    net: nn.Module
+    opt: Optimizer
+    metrics: Dict[str, torch.Tensor]
+    checkpointer: TrainCheckpointer
+
+
+def _setup(net: nn.Module, cfg, n_samples: int, model_dir: str,
+           max_steps_per_epoch: Optional[int], n_devices: Optional[int],
+           seed: int, device, what: str):
+    """Device, random weights, optimizer, checkpointer and the resume:
+    returns (net, opt, ckpt, steps_per_epoch, start_epoch, restored)."""
+    from stabstitch2_tpu_torch.pipeline.stitcher import resolve_device
+
+    if n_devices is not None and n_devices > 1:
+        raise NotImplementedError(
+            "n_devices > 1: multi-GPU training (torch.distributed) is not "
+            "ported yet (ROADMAP.md item 9)")
+    if n_samples < cfg.batch_size:
+        raise ValueError(f"dataset too small: {n_samples} {what} < batch "
+                         f"size {cfg.batch_size}")
+    device = resolve_device(device)
+    init_weights(net, torch.Generator().manual_seed(seed))
+    net.to(device).train()
+    steps_per_epoch = min(n_samples // cfg.batch_size,
+                          max_steps_per_epoch or 10 ** 9)
+    opt = make_optimizer(net.parameters(), cfg, steps_per_epoch)
+    ckpt = TrainCheckpointer(model_dir)
+    restored = ckpt.restore(map_location=device)
+    start_epoch = 0
+    if restored is not None:
+        net.load_state_dict(restored["model"], strict=True)
+        opt.load_state_dict(restored["optimizer"])
+        start_epoch = opt.step_count // max(steps_per_epoch, 1)
+    return net, opt, ckpt, steps_per_epoch, start_epoch, restored is not None
+
+
+def _writer(summary_dir: Optional[str]):
+    if not summary_dir:
+        return None
+    from tensorboardX import SummaryWriter
+
+    return SummaryWriter(log_dir=summary_dir)
+
+
+def _log(writer, metrics, step: int) -> None:
+    if writer is not None:
+        for k, v in metrics.items():
+            writer.add_scalar(k, float(v), step)
+
+
+def _save(ckpt: TrainCheckpointer, net: nn.Module, opt: Optimizer,
+          epoch: int) -> str:
+    return ckpt.save(opt.step_count, {
+        "model": net.state_dict(), "optimizer": opt.state_dict(),
+        "step": opt.step_count, "epoch": epoch})
+
+
+def _to(device, *arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in arrays)
+
+
+def _epochs(name, dataset, cfg, net, opt, steps_per_epoch, start_epoch,
+            seed, writer, on_step, step_fn, after_epoch):
+    """The shared epoch loop: ``step_fn(batch) -> metrics`` per step,
+    ``after_epoch(epoch)`` after each epoch."""
+    device = next(net.parameters()).device
+    metrics: Dict[str, torch.Tensor] = {}
+    for epoch in range(start_epoch, cfg.max_epoch):
+        t0 = time.perf_counter()
+        it = batch_iterator(dataset, cfg.batch_size, seed=seed + epoch)
+        try:
+            for bi, batch in enumerate(it):
+                if bi >= steps_per_epoch:
+                    break
+                metrics = step_fn(_to(device, *batch))
+                if bi % 100 == 0:
+                    _log(writer, metrics, opt.step_count)
+                if on_step is not None:
+                    on_step(opt.step_count, metrics)
+        finally:
+            it.close()
+        loss = float(metrics["total"]) if metrics else float("nan")
+        print(f"[{name}] epoch {epoch + 1}/{cfg.max_epoch} loss={loss:.4f} "
+              f"({time.perf_counter() - t0:.1f}s)", flush=True)
+        after_epoch(epoch)
+    return metrics
+
+
+def train_spatial(train_path: str, test_path: Optional[str] = None,
+                  cfg: Optional[SpatialTrainConfig] = None,
+                  model_dir: str = "model_spatial",
+                  summary_dir: Optional[str] = None,
+                  vgg_state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                  seed: int = 0, max_steps_per_epoch: Optional[int] = None,
+                  model_h: int = 360, model_w: int = 480,
+                  n_devices: Optional[int] = None, device="cuda",
+                  on_step: OnStep = None) -> TrainRun:
+    from stabstitch2_tpu_torch.metrics.psnr_ssim import ssim
+    from stabstitch2_tpu_torch.train.spatial import (frozen_vgg,
+                                                     spatial_train_outputs,
+                                                     spatial_train_step)
+
+    cfg = cfg or SpatialTrainConfig()
+    if cfg.perception_weight > 0 and vgg_state_dict is None:
+        # the tra recipe needs the perceptual term; training without it
+        # would make another model without a word
+        raise ValueError(
+            "the config has perception_weight > 0 (tra recipe) but no VGG-19 "
+            "weights were given: pass a torchvision vgg19 state_dict "
+            "(cli train --vgg_pth), or set perception_weight=0 (ssd)")
+    dataset = SpatialPairDataset(train_path, training=True, seed=seed,
+                                 model_size=(model_h, model_w))
+    net, opt, ckpt, spe, start, restored = _setup(
+        SpatialNet(model_h, model_w), cfg, len(dataset), model_dir,
+        max_steps_per_epoch, n_devices, seed, device, "samples")
+    dev = next(net.parameters()).device
+    vgg = (frozen_vgg(vgg_state_dict, dev) if cfg.perception_weight > 0
+           else None)
+    writer = _writer(summary_dir)
+    aug = torch.Generator().manual_seed(seed)
+    best_file = os.path.join(model_dir, "best_ssim.json")
+    best = {"ssim": -1.0}
+    if restored and os.path.exists(best_file):
+        with open(best_file) as f:
+            best["ssim"] = float(json.load(f)["best_ssim"])
+
+    def step_fn(batch):
+        img1, img2 = batch
+        return spatial_train_step(net, opt, img1, img2, draw_aug(aug), cfg,
+                                  vgg)
+
+    @torch.no_grad()
+    def score() -> float:
+        test = SpatialPairDataset(test_path, training=False,
+                                  model_size=(model_h, model_w))
+        net.eval()
+        scores = []
+        for i in range(0, len(test), 20):
+            a, b = _to(dev, *test[i])
+            out = spatial_train_outputs(net, a[None], b[None])
+            ov = (out["output_tps_ref"][0, ..., 3]
+                  * out["output_tps_tgt"][0, ..., 3])[..., None]
+            ref = (out["output_tps_ref"][0, ..., :3] + 1) * 127.5
+            tgt = (out["output_tps_tgt"][0, ..., :3] + 1) * 127.5
+            scores.append(float(ssim(ref * ov, tgt * ov)))
+        net.train()
+        return float(np.mean(scores)) if scores else -1.0
+
+    def after_epoch(epoch):
+        if not test_path:
+            _save(ckpt, net, opt, epoch + 1)
+            return
+        cur = score()
+        if writer is not None:
+            writer.add_scalar("SSIM", cur, epoch + 1)
+        if cur > best["ssim"]:
+            best["ssim"] = cur
+            _save(ckpt, net, opt, epoch + 1)
+            with open(best_file, "w") as f:
+                json.dump({"best_ssim": cur, "step": opt.step_count}, f)
+
+    metrics = _epochs("spatial", dataset, cfg, net, opt, spe, start, seed,
+                      writer, on_step, step_fn, after_epoch)
+    return TrainRun(net, opt, metrics, ckpt)
+
+
+def train_temporal(train_path: str, cfg: Optional[TemporalTrainConfig] = None,
+                   model_dir: str = "model_temporal",
+                   summary_dir: Optional[str] = None, seed: int = 0,
+                   max_steps_per_epoch: Optional[int] = None,
+                   model_h: int = 360, model_w: int = 480,
+                   n_devices: Optional[int] = None, device="cuda",
+                   on_step: OnStep = None) -> TrainRun:
+    from stabstitch2_tpu_torch.train.temporal import temporal_train_step
+
+    cfg = cfg or TemporalTrainConfig()
+    dataset = TemporalPairDataset(train_path, cfg.train_frame_num, seed=seed,
+                                  model_size=(model_h, model_w))
+    net, opt, ckpt, spe, start, _ = _setup(
+        TemporalNet(model_h, model_w), cfg, len(dataset), model_dir,
+        max_steps_per_epoch, n_devices, seed, device, "samples")
+    writer = _writer(summary_dir)
+    aug = torch.Generator().manual_seed(seed)
+
+    def step_fn(batch):
+        prev, nxt = batch
+        return temporal_train_step(net, opt, prev, nxt, draw_aug(aug), cfg)
+
+    def after_epoch(epoch):
+        if (epoch + 1) % 20 == 0 or epoch + 1 == cfg.max_epoch:
+            _save(ckpt, net, opt, epoch + 1)
+
+    metrics = _epochs("temporal", dataset, cfg, net, opt, spe, start, seed,
+                      writer, on_step, step_fn, after_epoch)
+    return TrainRun(net, opt, metrics, ckpt)
+
+
+def train_smooth(train_path: str, cfg: Optional[SmoothTrainConfig] = None,
+                 model_dir: str = "model_smooth",
+                 summary_dir: Optional[str] = None, seed: int = 0,
+                 max_steps_per_epoch: Optional[int] = None,
+                 model_h: int = 360, model_w: int = 480,
+                 n_devices: Optional[int] = None, device="cuda",
+                 on_step: OnStep = None) -> TrainRun:
+    from stabstitch2_tpu_torch.train.smooth import smooth_train_step
+
+    cfg = cfg or SmoothTrainConfig()
+    dataset = SmoothWindowDataset(
+        train_path, selected_frames=cfg.frame_num + cfg.train_sqe - 1,
+        train_frame_num=cfg.train_frame_num, seed=seed,
+        model_size=(model_h, model_w))
+    net, opt, ckpt, spe, start, _ = _setup(
+        SmoothNet(), cfg, len(dataset), model_dir, max_steps_per_epoch,
+        n_devices, seed, device,
+        "windows (did export-motions run?)")
+    writer = _writer(summary_dir)
+
+    def step_fn(batch):
+        return smooth_train_step(net, opt, batch, cfg)
+
+    def after_epoch(epoch):
+        if (epoch + 1) % 10 == 0 or epoch + 1 == cfg.max_epoch:
+            _save(ckpt, net, opt, epoch + 1)
+
+    metrics = _epochs("smooth", dataset, cfg, net, opt, spe, start, seed,
+                      writer, on_step, step_fn, after_epoch)
+    return TrainRun(net, opt, metrics, ckpt)

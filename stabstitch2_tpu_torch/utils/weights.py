@@ -9,6 +9,10 @@ conv3d ``[kt, kh, kw, I, O] -> [O, I, kt, kh, kw]``, dense ``[I, O] ->
 [O, I]``, BatchNorm ``scale/bias -> weight/bias`` and
 ``batch_stats mean/var -> running_mean/running_var``.
 
+:func:`flax_grads_to_named` maps a Flax gradient tree (the ``params``
+structure) onto the port's parameter names, so gradients compare by name;
+:func:`vgg19_mapping` maps ``VGG19Features`` with torchvision's keys.
+
 The mapping tables are this package's own copy of the JAX package's.
 """
 
@@ -84,6 +88,13 @@ def smooth_mapping():
             ("MotionPre.decoding.0", "motion_pre/decode_fc", "linear")]
 
 
+def vgg19_mapping():
+    """torchvision ``vgg19.features`` indices -> ``VGG19Features`` names."""
+    names = [(0, "conv1_1"), (2, "conv1_2"), (5, "conv2_1"), (7, "conv2_2"),
+             (10, "conv3_1"), (12, "conv3_2")]
+    return [(f"features.{i}", name, "conv") for i, name in names]
+
+
 # ---------------------------------------------------------------------------
 # conversion
 # ---------------------------------------------------------------------------
@@ -103,7 +114,8 @@ def _t(x) -> torch.Tensor:
 
 
 def flax_to_state_dict(variables: Mapping, mapping) -> Dict[str, torch.Tensor]:
-    """Apply one mapping table to ``{'params': ..., 'batch_stats': ...}``."""
+    """Apply one mapping table to ``{'params': ..., 'batch_stats': ...}``.
+    Without ``batch_stats`` a BatchNorm maps its weight and bias only."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}
@@ -119,16 +131,24 @@ def flax_to_state_dict(variables: Mapping, mapping) -> Dict[str, torch.Tensor]:
         elif kind == "linear":
             sd[f"{tname}.weight"] = _t(np.asarray(node["kernel"]).T)
         elif kind == "bn":
-            st = _get(stats, fpath)
             sd[f"{tname}.weight"] = _t(node["scale"])
-            sd[f"{tname}.running_mean"] = _t(st["mean"])
-            sd[f"{tname}.running_var"] = _t(st["var"])
-            sd[f"{tname}.num_batches_tracked"] = torch.tensor(0)
+            st = _get(stats, fpath)
+            if st is not None:
+                sd[f"{tname}.running_mean"] = _t(st["mean"])
+                sd[f"{tname}.running_var"] = _t(st["var"])
+                sd[f"{tname}.num_batches_tracked"] = torch.tensor(0)
         else:
             raise ValueError(kind)
         if "bias" in node:
             sd[f"{tname}.bias"] = _t(node["bias"])
     return sd
+
+
+def flax_grads_to_named(grads: Mapping, mapping) -> Dict[str, torch.Tensor]:
+    """A Flax gradient tree (shaped like ``params``) under the port's
+    parameter names, in the port's layouts: what ``named_parameters``'
+    ``.grad`` holds for the same loss."""
+    return flax_to_state_dict({"params": grads}, mapping)
 
 
 def from_jax_params(spatial_vars: Mapping, temporal_vars: Mapping,

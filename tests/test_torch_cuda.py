@@ -9,7 +9,10 @@ nor the JAX package, so it also runs on a machine without them:
 Tolerances: K1 1e-5 (the kernel sums the channels in another order);
 K2, K3 and K4 exact, since kernel and plain version do the same float32
 operations in the same order (and K2 and K3 evaluate the spline through
-the same device routine, so K3 + K4 give K2's planes exactly).
+the same device routine, so K3 + K4 give K2's planes exactly). K3's
+``TpsCoords`` gradients equal autograd through its plain version exactly;
+a spatial training step on the card is held against the CPU at 1e-4
+(loss) and 1e-2 (each gradient, relative L2).
 """
 
 import numpy as np
@@ -423,3 +426,100 @@ def test_chain_k2_launch_over_views_equals_per_image_launches(cuda_device):
                                   grid_span=(140, 250), fused_warp=True)
         torch.testing.assert_close(w[0], warped[i], atol=0, rtol=0)
         torch.testing.assert_close(m[0], mask[i], atol=0, rtol=0)
+
+
+def test_k2_and_k4_raise_when_inputs_require_grad(cuda_device):
+    """Neither kernel has a backward: a CUDA launch with grad enabled and
+    inputs that require grad raises instead of dropping the gradient;
+    under no_grad, or on the CPU, they run."""
+    im, T, norm = _warp_case(cuda_device, B=2)
+    Tg = T.clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_warp_cuda.fused_warp_planes(im, Tg, norm, (144, 256))
+    with torch.no_grad():
+        fused_warp_cuda.fused_warp_planes(im, Tg, norm, (144, 256))
+    fused_warp_cuda.fused_warp_planes(im.cpu(), Tg.detach().cpu()
+                                      .requires_grad_(True), norm.cpu(),
+                                      (144, 256))
+    x, y = tps_coords_cuda.tps_coords(T, norm, (144, 256))
+    xg = x.clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        patch_gather_cuda.bilinear_sample_patch_u8_cuda(im, xg, y, (144, 256))
+    with torch.no_grad():
+        patch_gather_cuda.bilinear_sample_patch_u8_cuda(im, xg, y, (144, 256))
+
+
+@pytest.mark.parametrize("out_size,span,B", [((120, 160), None, 2),
+                                             ((30, 40), None, 6),
+                                             ((144, 256), (140, 250), 3)])
+def test_tps_coords_gradients_equal_plain_autograd(cuda_device, out_size,
+                                                   span, B):
+    """K3 with inputs that require grad goes through ``TpsCoords``: its
+    forward is the kernel (one launch, bit-equal to the plain version) and
+    its gradients equal autograd through ``tps_coords_plain`` exactly."""
+    _, T0, src0 = _warp_case(cuda_device, B=B)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    n = out_size[0] * out_size[1]
+    cot = [torch.randn(B, n, generator=gen, device=cuda_device)
+           for _ in range(2)]
+    outs, grads = [], []
+    for fn in (tps_coords_cuda.tps_coords, tps_coords_cuda.tps_coords_plain):
+        T, src = (a.clone().requires_grad_(True) for a in (T0, src0))
+        before = tps_coords_cuda.LAUNCHES["tps_coords"]
+        xs, ys = fn(T, src, out_size, grid_span=span)
+        kernel = fn is tps_coords_cuda.tps_coords
+        launched = tps_coords_cuda.LAUNCHES["tps_coords"] - before
+        assert launched == (1 if kernel else 0)
+        assert type(xs.grad_fn).__name__.startswith("TpsCoords") == kernel
+        torch.autograd.backward((xs, ys), cot)
+        outs.append((xs.detach(), ys.detach()))
+        grads.append((T.grad, src.grad))
+    for a, b in zip(outs[0] + grads[0], outs[1] + grads[1]):
+        assert torch.equal(a, b)
+
+
+def test_spatial_train_step_card_vs_cpu(cuda_device):
+    """One spatial loss and backward at B=2, 128x160, from the same
+    weights and augmentation factors: the loss within 1e-4 relative and
+    every gradient within 1e-2 relative L2 of the CPU's (the train
+    phase's gate in chip_smoke.py, whose constants say why 1e-2); two K1
+    and two K3 launches."""
+    import copy
+
+    from stabstitch2_tpu_torch.config import SpatialTrainConfig
+    from stabstitch2_tpu_torch.models import SpatialNet
+    from stabstitch2_tpu_torch.models.backbone import init_weights
+    from stabstitch2_tpu_torch.train.common import draw_aug
+    from stabstitch2_tpu_torch.train.spatial import spatial_loss_fn
+    from synthetic import make_two_view_clip
+
+    v1, v2 = make_two_view_clip(num_frames=2, height=128, width=160,
+                                overlap=0.6, shake_px=2.0, seed=0)
+    pair = [torch.from_numpy(v.astype(np.float32) / 127.5 - 1.0)
+            for v in (v1, v2)]
+    net = SpatialNet(128, 160)
+    init_weights(net, torch.Generator().manual_seed(0))
+    factors = draw_aug(torch.Generator().manual_seed(0))
+    out = {}
+    threads = torch.get_num_threads()
+    for dev in ("cpu", cuda_device):
+        n = copy.deepcopy(net).to(dev).train()
+        k1 = corr_cuda.LAUNCHES[5]
+        k3 = tps_coords_cuda.LAUNCHES["tps_coords"]
+        torch.set_num_threads(1)
+        try:
+            total, _ = spatial_loss_fn(n, *(x.to(dev) for x in pair),
+                                       factors, SpatialTrainConfig())
+            total.backward()
+        finally:
+            torch.set_num_threads(threads)
+        out[str(dev)] = (float(total), {k: p.grad.double().cpu()
+                                        for k, p in n.named_parameters()})
+        if dev != "cpu":
+            assert corr_cuda.LAUNCHES[5] - k1 == 2
+            assert tps_coords_cuda.LAUNCHES["tps_coords"] - k3 == 2
+    (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out[str(cuda_device)]
+    assert abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
+    gaps = {k: float((g_card[k] - g_cpu[k]).norm() / g_cpu[k].norm())
+            for k in g_cpu}
+    assert max(gaps.values()) <= 1e-2, gaps
