@@ -43,22 +43,33 @@ Phases, each printing one JSON line with its seconds:
    with the launch counts set to 0 just before and read just after (K1
    and K2 > 0); the card's model input against the CPU port's
    (<= RESIZE_ATOL).
-6. ``cli``: the main path, ``cli stitch`` at its defaults (bf16 trunks,
-   I420 upload, yuv420 download, K2, the loader thread and the two-deep
-   begin/finish loop), driven through the CLI's own functions over 4
-   synthetic clips of 48 frames at 360x480 written as jpgs, with the
-   launch counts set to 0 just before and read just after (K1 and K2
-   > 0); then the same videos one at a time (``stitch_arrays`` and the
-   encode), in turns with the pipelined loop. Gates: each mp4 holds 48
-   frames, the pipelined frames equal ``stitch_arrays``' bit for bit, the
-   bf16 smooth meshes lie within BF16_MESH_BOUND_PX of a float32
-   stitcher's, and one ``stitch_begin`` waits for the card once (the
-   canvas fetch, by ``torch.cuda.set_sync_debug_mode``).
-7. ``trace``: one of those videos through ``--trace_dir``
-   (``torch.profiler``); the Chrome trace must name the cost_volume and
-   fused_warp kernels. Prints the card's idle share of the traced window
-   and the 5 device operations that took the most time.
-8. ``kernels``: each kernel against its plain PyTorch version on the card,
+6. ``loader``: the native frame loader (``native/frameloader.cpp``,
+   built with g++ and libjpeg at first use): the build's seconds, the
+   decoder, and the decode of the cli phase's 4 x 2 x 48 jpgs natively
+   and by cv2 (with and without the model-size resize), in turns; native
+   frames against cv2's within the bounds of tests/test_torch_native.py.
+   A build that fails only for want of libjpeg is reported and the run
+   goes on with cv2; any other build failure fails the script.
+7. ``cli``: the main path, ``cli stitch`` at its defaults (bf16 trunks,
+   native decode, I420 upload, yuv420 download, K2, the loader thread and
+   the two-deep begin/finish loop), driven through the CLI's own
+   functions over 4 synthetic clips of 48 frames at 360x480 written as
+   jpgs, with the launch counts set to 0 just before and read just after
+   (K1 and K2 > 0); then the same videos one at a time (``stitch_arrays``
+   and the encode), and the pipelined loop with ``upload_mode="stream"``
+   (counted the same way), in turns. Gates: each mp4 holds 48 frames, the
+   pipelined frames equal ``stitch_arrays``' bit for bit and the stream
+   frames and meshes the bulk ones, the view loads went through the
+   loader phase's decoder, the bf16 smooth meshes lie within
+   BF16_MESH_BOUND_PX of a float32 stitcher's, and one ``stitch_begin``
+   waits for the card once in either upload mode (the canvas fetch, by
+   ``torch.cuda.set_sync_debug_mode``).
+8. ``trace``: one of those videos through ``--trace_dir``
+   (``torch.profiler``), in bulk and in stream mode; each Chrome trace
+   must name the cost_volume and fused_warp kernels. Prints the card's
+   idle share of the traced window, the 5 device operations that took
+   the most time, and the ms of host-to-device copy that overlap kernels.
+9. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the shapes the main path gives it, with CUDA-event times, the bound
    (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s, the H100
    SXM's published peaks; an FMA counts two operations) and the share of
@@ -71,29 +82,29 @@ Phases, each printing one JSON line with its seconds:
    K2 must equal its plain version bit for bit (planes and mask), and
    its log (``log_core``) must equal ``logf`` on every float32 from 1e-6
    to FLT_MAX.
-9. ``cpu_compare``: the same port on the CPU over the first 8 frames,
+10. ``cpu_compare``: the same port on the CPU over the first 8 frames,
    against the card: smooth meshes, and composited frames on the same
    meshes with AVERAGE and with LINEAR fusion (LINEAR reads K2's coverage
    masks).
 
-10. ``online``: ``OnlineStitcher.push`` over 48 frames at 360x480 at the
+11. ``online``: ``OnlineStitcher.push`` over 48 frames at 360x480 at the
     defaults (bf16, route A), one pair at a time, counted; per-push host
     ms, waits and launches; gates on the emissions, one wait per steady
     push, the i420 emission against the converted bgr one, and float32
     online against batch and route A against route B (``phase_online``).
-11. ``multi``: ``stitch_multi_begin``/``finish`` on a 3-view clip of 16
+12. ``multi``: ``stitch_multi_begin``/``finish`` on a 3-view clip of 16
     frames at 360x480 at the CLI's defaults, counted, then ``cli
     stitch-multi``; gates on the frames, the mp4, float32 route A against
     route B and the chain's junctions on the card against the CPU, which
     must also see a planted fault (bfloat16 pair meshes)
     (``phase_multi``).
-12. ``metric``: ``evaluate_video`` on 16 frames at 360x480 with the
+13. ``metric``: ``evaluate_video`` on 16 frames at 360x480 with the
     ``metric`` command's stitcher, counted (K3 warps the float views),
     then ``cli metric --out_json``; gates on the launches, float32
     metrics on the card against the CPU and the report
     (``phase_metric``).
 
-13. ``train``: the training path through ``cli.main`` at full width and
+14. ``train``: the training path through ``cli.main`` at full width and
     batch 8, float32: ``train spatial`` (ssd), ``train temporal``,
     ``export-motions --which both`` with the two trained nets, ``train
     smooth``, each TRAIN_STEPS steps on TRAIN_VIDEOS jpg clips of
@@ -109,7 +120,7 @@ Phases, each printing one JSON line with its seconds:
     against autograd through the plain version on the recorded inputs
     (``phase_train``).
 
-Phases 10-13 also hold every kernel that their path runs against its
+Phases 11-14 also hold every kernel that their path runs against its
 plain version on the card, on the inputs that path gave it (the latest
 call at each of up to HELD_PER_KERNEL shapes, ``PathInputs``): K2 and K3
 exactly, K1 and K4 within the kernels phase's tolerances. The
@@ -142,7 +153,13 @@ T_FRAMES = 16        # clip length of the float32 stitch, routes and resize runs
 CPU_FRAMES = 8       # frames the CPU comparison runs
 CLI_VIDEOS = 4       # the cli phase's dataset: videos of CLI_FRAMES frames
 CLI_FRAMES = 48
-CLI_ROUNDS = 2       # pipelined and sequential runs, in turns
+CLI_ROUNDS = 2       # pipelined (bulk, stream) and sequential runs, in turns
+LOADER_ROUNDS = 3    # native and cv2 decodes of the cli dataset, in turns
+QUEUED_SLEEP_MS = 20  # card work queued ahead of a traced stitch_begin
+# native decode against cv2 (tests/test_torch_native.py, the JAX package's
+# tests/test_pipeline.py::TestNativeLoader): their IDCTs may round apart
+LOADER_MEAN_LEVELS = 1.5
+LOADER_MAX_LEVELS = 24
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 L2_BYTES = 50 * 2 ** 20        # H100 SXM L2 cache
 K4_ROUNDS = 20       # rounds of K4 and F.grid_sample timed in turns
@@ -935,38 +952,144 @@ def begin_syncs(st, arrays):
             if "called a synchronizing" in str(w.message)]
 
 
-def phase_cli(device, tmp):
-    """``cli stitch`` at its defaults, through the functions the CLI runs
-    (``build_stitcher`` of the default flags, the loader thread, the
-    two-deep ``stitch_stream``, the mp4 sink) over CLI_VIDEOS synthetic
-    clips of CLI_FRAMES frames at 360x480, in turns with the same videos
-    one at a time (load, ``stitch_arrays``, encode); ``load_s`` times the
-    decode and I420 packing of all videos on one thread. The launch counts
-    are set to 0 just before the first pipelined run and read just after.
-    Gates: every mp4 holds CLI_FRAMES frames; the pipelined frames equal
-    ``stitch_arrays``' bit for bit; the bf16 smooth meshes lie within
-    BF16_MESH_BOUND_PX of a float32 stitcher's on each clip; one
-    ``stitch_begin`` waits for the card once (the canvas fetch)."""
-    import torch
-
-    from stabstitch2_tpu_torch import cli
-    from stabstitch2_tpu_torch.data.video_io import list_videos
-    from stabstitch2_tpu_torch.ops import corr_cuda, fused_warp_cuda
-    from stabstitch2_tpu_torch.pipeline.stitcher import init_stitcher
+def write_cli_data(tmp) -> str:
+    """The cli phase's dataset: CLI_VIDEOS synthetic clips of CLI_FRAMES
+    jpg frames per view at 360x480, under ``tmp``/data."""
     from synthetic import write_clip_dirs
 
-    data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+    data = os.path.join(tmp, "data")
     for seed in range(CLI_VIDEOS):
         write_clip_dirs(data, num_frames=CLI_FRAMES, height=360, width=480,
                         seed=seed, video_name=f"clip{seed}")
+    return data
+
+
+def libjpeg_presence() -> dict:
+    """Whether the host compiler finds libjpeg's header and links its
+    library, and the libjpeg shared objects in the system library
+    directories."""
+    from stabstitch2_tpu_torch.utils import native_build
+
+    cxx = native_build.compiler()
+    with tempfile.TemporaryDirectory() as d:
+        src, main = os.path.join(d, "h.cpp"), os.path.join(d, "m.cpp")
+        with open(src, "w") as f:
+            f.write("#include <cstdio>\n#include <jpeglib.h>\n")
+        with open(main, "w") as f:
+            f.write("int main() { return 0; }\n")
+        header = subprocess.run([cxx, "-fsyntax-only", src],
+                                capture_output=True).returncode == 0
+        library = subprocess.run([cxx, main, "-o", os.path.join(d, "m"),
+                                  "-ljpeg"], capture_output=True
+                                 ).returncode == 0
+    found = sorted({os.path.basename(p) for d in (
+        "/usr/lib/x86_64-linux-gnu", "/lib/x86_64-linux-gnu", "/usr/lib64",
+        "/usr/local/lib") for p in glob.glob(os.path.join(d, "libjpeg*.so*"))})
+    return {"header_found": header, "library_links": library,
+            "shared_objects": found}
+
+
+def phase_loader(data):
+    """The native frame loader (``data/native.py``): the g++ build's
+    seconds, then the cli dataset's CLI_VIDEOS x 2 x CLI_FRAMES jpgs
+    decoded by ``load_video_pair`` natively, by cv2, and by cv2 with the
+    model-size resize that ``cli stitch`` made and dropped before this
+    slice, LOADER_ROUNDS times in turns. Gate: the native frames against
+    cv2's within LOADER_MEAN_LEVELS (mean) and LOADER_MAX_LEVELS (max).
+    Where the build fails only because libjpeg's header or library is
+    missing, the line says so with the compiler's message and what the
+    compiler finds of libjpeg, times cv2 alone, and the run goes on with
+    cv2; any other build failure fails the script."""
+    import numpy as np
+
+    from stabstitch2_tpu_torch.data import native
+    from stabstitch2_tpu_torch.data.video_io import (list_videos,
+                                                     load_video_pair)
+    from stabstitch2_tpu_torch.utils import native_build
+
+    t = time.perf_counter()
+    ok = native.available()
+    info = {"phase": "loader", "available": ok,
+            "first_use_s": time.perf_counter() - t}
+    if ok:
+        info.update(build_s=native.BUILD.seconds, built=native.BUILD.built,
+                    command=" ".join(native.BUILD.command), decoder="native")
+    else:
+        err = native.build_error()
+        require(native_build.libjpeg_missing(err),
+                f"the native frame loader builds: {err}")
+        info.update(decoder="cv2", libjpeg_missing=[
+            line.strip() for line in err.splitlines()
+            if "jpeg" in line and ("No such file" in line
+                                   or "cannot find" in line)],
+            libjpeg=libjpeg_presence())
+    videos = list_videos(data)
+
+    def load(native_, size):
+        t0 = time.perf_counter()
+        got = [load_video_pair(vd, model_size=size, use_native=native_)
+               for vd in videos]
+        return got, time.perf_counter() - t0
+
+    walls = {"native_s": [], "cv2_s": [], "cv2_with_resize_s": []}
+    for _ in range(LOADER_ROUNDS):
+        if ok:
+            nat, s_nat = load(True, None)
+            walls["native_s"].append(s_nat)
+        ref, s_cv2 = load(False, None)
+        _, s_old = load(False, (360, 480))
+        walls["cv2_s"].append(s_cv2)
+        walls["cv2_with_resize_s"].append(s_old)
+    frames = sum(len(p[0]) + len(p[2]) for p in ref)
+    info.update(jpgs=frames, frame_hw=[360, 480], wall_s=walls,
+                fps={k: [frames / w for w in v] for k, v in walls.items()})
+    if not ok:
+        return info
+    diffs = [np.abs(a.astype(np.int16) - b.astype(np.int16))
+             for pn, pr in zip(nat, ref) for a, b in ((pn[0], pr[0]),
+                                                      (pn[2], pr[2]))]
+    mean = float(np.mean([d.mean() for d in diffs]))
+    worst = int(max(d.max() for d in diffs))
+    require(mean < LOADER_MEAN_LEVELS and worst <= LOADER_MAX_LEVELS,
+            f"native frames against cv2: mean {mean}, max {worst}")
+    return {**info, "native_vs_cv2_levels": {
+        "mean": mean, "max": worst, "bound_mean": LOADER_MEAN_LEVELS,
+        "bound_max": LOADER_MAX_LEVELS}}
+
+
+def phase_cli(device, tmp, data):
+    """``cli stitch`` at its defaults, through the functions the CLI runs
+    (``build_stitcher`` of the default flags, the loader thread with the
+    native decoder, the two-deep ``stitch_stream``, the mp4 sink) over
+    the CLI_VIDEOS clips of CLI_FRAMES frames at 360x480 in ``data``; in
+    turns: the pipelined loop, the same videos one at a time (load,
+    ``stitch_arrays``, encode), and the pipelined loop with
+    ``upload_mode="stream"``. ``load_s`` times the decode and I420 packing
+    of all videos on one thread. The launch counts are set to 0 just
+    before the first pipelined run and read just after, and again around
+    the first stream run. Gates: every mp4 holds CLI_FRAMES frames; the
+    pipelined frames equal ``stitch_arrays``' bit for bit, and the stream
+    frames the bulk ones; the view loads of the pipelined run went
+    through the decoder the loader phase built; the bf16 smooth meshes lie
+    within BF16_MESH_BOUND_PX of a float32 stitcher's on each clip; one
+    ``stitch_begin`` waits for the card once (the canvas fetch), in bulk
+    and in stream mode."""
+    import torch
+
+    from stabstitch2_tpu_torch import cli
+    from stabstitch2_tpu_torch.data import native
+    from stabstitch2_tpu_torch.data.video_io import DECODED, list_videos
+    from stabstitch2_tpu_torch.ops import corr_cuda, fused_warp_cuda
+    from stabstitch2_tpu_torch.pipeline.stitcher import init_stitcher
+
+    out = os.path.join(tmp, "out")
     args = cli.make_parser().parse_args(["stitch", "--test_path", data,
                                          "--output_path", out])
     st = cli.build_stitcher(args)
     videos = list_videos(data)
-    size = (st.model_h, st.model_w)
     t0 = time.perf_counter()
     loaded = {os.path.basename(vd): arrays
-              for vd, arrays, _ in cli.load_videos(videos, size)}
+              for vd, arrays, _ in cli.load_videos(videos)}
     load_s = time.perf_counter() - t0
     require(all(a[0].ndim == 3 for a in loaded.values()),
             "default upload is packed I420")
@@ -982,47 +1105,71 @@ def phase_cli(device, tmp):
 
         t0 = time.perf_counter()
         done, failed = cli.stitch_stream(
-            st, cli.threaded(cli.load_videos(videos, size)), sink)
+            st, cli.threaded(cli.load_videos(videos)), sink)
         torch.cuda.synchronize()
         require((done, failed) == (CLI_VIDEOS, 0),
                 f"pipelined run stitched {done}, failed {failed}")
         return got, time.perf_counter() - t0
 
+    def streamed():
+        st.upload_mode = "stream"
+        try:
+            return pipelined()
+        finally:
+            st.upload_mode = "bulk"
+
     def sequential():
         got = {}
         t0 = time.perf_counter()
-        for vd, arrays, _ in cli.load_videos(videos, size):
+        for vd, arrays, _ in cli.load_videos(videos):
             name = os.path.basename(vd)
             got[name] = st.stitch_arrays(*arrays)
             mp4(name, got[name])
         torch.cuda.synchronize()
         return got, time.perf_counter() - t0
 
+    def counted(run):
+        torch.cuda.synchronize()
+        corr_cuda.LAUNCHES.clear()
+        fused_warp_cuda.LAUNCHES.clear()
+        DECODED.clear()
+        got = run()
+        n = {"cost_volume_r5": corr_cuda.LAUNCHES[5],
+             "cost_volume_r3": corr_cuda.LAUNCHES[3],
+             "fused_warp": fused_warp_cuda.LAUNCHES["fused_warp"]}
+        require(all(v > 0 for v in n.values()),
+                f"K1 and K2 launched on the default path: {n}")
+        return got, n, dict(DECODED)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    corr_cuda.LAUNCHES.clear()
-    fused_warp_cuda.LAUNCHES.clear()
-    pipe, pipe_s = pipelined()
-    launches = {"cost_volume_r5": corr_cuda.LAUNCHES[5],
-                "cost_volume_r3": corr_cuda.LAUNCHES[3],
-                "fused_warp": fused_warp_cuda.LAUNCHES["fused_warp"]}
+    (pipe, pipe_s), launches, decoded = counted(pipelined)
     peak = torch.cuda.max_memory_allocated()
-    require(all(n > 0 for n in launches.values()),
-            f"K1 and K2 launched on the default path: {launches}")
+    decoder = "native" if native.available() else "cv2"
+    require(decoded == {decoder: 2 * CLI_VIDEOS},
+            f"the pipelined run's view loads went through {decoder}: "
+            f"{decoded}")
     out_frames = {n: mp4_frames(os.path.join(out, n + ".mp4"))
                   for n in loaded}
     require(all(n == CLI_FRAMES for n in out_frames.values()),
             f"mp4 frame counts {out_frames}")
     seq, seq_s = sequential()
-    walls = {"pipelined_s": [pipe_s], "sequential_s": [seq_s]}
+    (strm, strm_s), launches_stream, _ = counted(streamed)
+    walls = {"pipelined_s": [pipe_s], "sequential_s": [seq_s],
+             "pipelined_stream_s": [strm_s]}
     for _ in range(CLI_ROUNDS - 1):
         walls["pipelined_s"].append(pipelined()[1])
         walls["sequential_s"].append(sequential()[1])
+        walls["pipelined_stream_s"].append(streamed()[1])
     for name, r in pipe.items():
         same = (r.frames.shape == seq[name].frames.shape
                 and bool((r.frames == seq[name].frames).all()))
         require(same, f"{name}: pipelined frames equal stitch_arrays'")
         require(r.frame_format == "i420", f"{name}: yuv420 download")
+        same = (r.frames.shape == strm[name].frames.shape
+                and bool((r.frames == strm[name].frames).all())
+                and mesh_gap(r, strm[name]) == 0.0)
+        require(same, f"{name}: stream frames and meshes equal bulk's")
 
     f32 = init_stitcher(rng_seed=0, config=st.config,
                         compute_dtype=torch.float32, device=device)
@@ -1037,16 +1184,36 @@ def phase_cli(device, tmp):
     syncs = begin_syncs(st, loaded["clip0"])
     require(len(syncs) == 1, f"one wait in stitch_begin (the canvas fetch): "
                              f"{syncs}")
+    st.upload_mode = "stream"
+    try:
+        syncs_stream = begin_syncs(st, loaded["clip0"])
+    finally:
+        st.upload_mode = "bulk"
+    require(len(syncs_stream) == 1, f"one wait in a stream stitch_begin: "
+                                    f"{syncs_stream}")
     frames = CLI_VIDEOS * CLI_FRAMES
+
+    def up_spatial(results):
+        keys = ("upload", "spatial", "temporal")
+        return {n: {**{k: r.ms[k] for k in keys},
+                    "sum": sum(r.ms[k] for k in keys)}
+                for n, r in results.items()}
     return st, videos, {
         "phase": "cli", "videos": CLI_VIDEOS, "frames_per_video": CLI_FRAMES,
         "frame_hw": [360, 480], "flags": "defaults",
         "compute_dtype": str(st.spatial_net.feature_extractor_stage1
                              .compute_dtype),
         "upload": "i420", "download": st.config.download_format,
+        "decoder": decoder, "view_loads": decoded,
         "load_s": load_s, "wall_s": walls, "fps_pipelined": [frames / w for w in
                                            walls["pipelined_s"]],
         "fps_sequential": [frames / w for w in walls["sequential_s"]],
+        "fps_pipelined_stream": [frames / w for w in
+                                 walls["pipelined_stream_s"]],
+        "stream_equals_bulk": True,
+        "ms_bulk": up_spatial(pipe), "ms_stream": up_spatial(strm),
+        "launches_stream": launches_stream,
+        "stitch_begin_syncs_stream": syncs_stream,
         "phase_ms_pipelined": {n: r.ms for n, r in pipe.items()},
         "encode_fps": {n: r.fps["encode"] for n, r in seq.items()},
         "phase_ms_bf16": {n: r.ms for n, r in seq.items()},
@@ -1058,25 +1225,84 @@ def phase_cli(device, tmp):
 
 def phase_trace(st, videos, tmp):
     """One video through ``--trace_dir``: ``stitch_stream(...,
-    trace_dir=...)`` as ``cmd_stitch`` calls it. Gate: the Chrome trace
-    exists and names the cost_volume and fused_warp kernels. Reports the
-    card's idle share of the traced window (1 - the union of kernel and
-    copy intervals over the window) and the 5 device operations that took
-    the most time; the most launched device operations and the most
-    frequent host-side ATen operations (count, inclusive ms)."""
+    trace_dir=...)`` as ``cmd_stitch`` calls it, in bulk and then in
+    stream upload mode; then both again with QUEUED_SLEEP_MS of
+    ``torch.cuda._sleep`` enqueued on the card just before
+    ``stitch_begin`` (inside the trace), the case of a card with work
+    queued ahead, where copies on the copy stream can run beside
+    it and copies on the compute stream cannot. Gate: each Chrome trace
+    exists and names the cost_volume and fused_warp kernels. Reports, per
+    run, the card's idle share of the traced window (1 - the union of
+    kernel and copy intervals over the window), the 5 device operations
+    that took the most time, the most launched device operations, the
+    most frequent host-side ATen operations (count, inclusive ms), and
+    the ms of host-to-device copy and how many of them overlap a kernel
+    (:func:`h2d_overlap`)."""
+    import torch
+
     from stabstitch2_tpu_torch import cli
 
-    d = os.path.join(tmp, "trace")
-    size = (st.model_h, st.model_w)
-    done, _ = cli.stitch_stream(st, cli.load_videos(videos[:1], size),
-                                cli.mp4_sink(os.path.join(tmp, "trace_out")),
-                                trace_dir=d)
-    files = sorted(glob.glob(os.path.join(d, "*.json")))
-    require(done == 1 and len(files) == 1, f"one trace file: {files}")
-    stats, names = trace_stats(files[0])
-    for k in ("cost_volume", "fused_warp"):
-        require(any(k in n for n in names), f"trace names a {k} kernel")
-    return {"phase": "trace", **stats}
+    out = {"phase": "trace", "queued_sleep_ms": QUEUED_SLEEP_MS}
+    begin = st.stitch_begin
+    cycles = int(QUEUED_SLEEP_MS * 1e-3
+                 * torch.cuda.get_device_properties(0).clock_rate * 1e3)
+
+    def queued_begin(*arrays):
+        torch.cuda._sleep(cycles)
+        return begin(*arrays)
+
+    for mode, queued in (("bulk", False), ("stream", False),
+                         ("bulk", True), ("stream", True)):
+        name = mode + ("_queued" if queued else "")
+        d = os.path.join(tmp, f"trace_{name}")
+        st.upload_mode = mode
+        if queued:
+            st.stitch_begin = queued_begin
+        try:
+            done, _ = cli.stitch_stream(
+                st, cli.load_videos(videos[:1]),
+                cli.mp4_sink(os.path.join(tmp, "trace_out")), trace_dir=d)
+        finally:
+            st.upload_mode = "bulk"
+            if queued:
+                del st.stitch_begin
+        files = sorted(glob.glob(os.path.join(d, "*.json")))
+        require(done == 1 and len(files) == 1, f"one trace file: {files}")
+        stats, names = trace_stats(files[0])
+        for k in ("cost_volume", "fused_warp"):
+            require(any(k in n for n in names),
+                    f"{name} trace names a {k} kernel")
+        stats.update(h2d_overlap(files[0]))
+        out.update(stats if name == "bulk" else {name: stats})
+    return out
+
+
+def h2d_overlap(path) -> dict:
+    """Host-to-device copies in a Chrome trace: their ms, the ms of them
+    during which a kernel ran (their intervals intersected with the union
+    of the kernel intervals), and the streams they ran on."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e["name"]]
+    busy = []
+    for e in sorted((e for e in events if e.get("cat") == "kernel"),
+                    key=lambda e: e["ts"]):
+        a, b = e["ts"], e["ts"] + e["dur"]
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    overlap = 0.0
+    for c in copies:
+        a, b = c["ts"], c["ts"] + c["dur"]
+        overlap += sum(max(0.0, min(b, y) - max(a, x)) for x, y in busy)
+    return {"h2d_copies": len(copies),
+            "h2d_ms": sum(c["dur"] for c in copies) / 1e3,
+            "h2d_overlapping_kernels_ms": overlap / 1e3,
+            "h2d_streams": sorted({str(c.get("args", {}).get("stream"))
+                                   for c in copies})}
 
 
 def trace_stats(path):
@@ -2071,8 +2297,14 @@ def main() -> int:
     emit(resize)
 
     with tempfile.TemporaryDirectory() as tmp:
+        data = write_cli_data(tmp)
         t = time.perf_counter()
-        st_cli, videos, cli_info = phase_cli(device, tmp)
+        loader = phase_loader(data)
+        loader["seconds"] = time.perf_counter() - t
+        emit(loader)
+
+        t = time.perf_counter()
+        st_cli, videos, cli_info = phase_cli(device, tmp, data)
         cli_info["seconds"] = time.perf_counter() - t
         emit(cli_info)
 

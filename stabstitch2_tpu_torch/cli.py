@@ -2,9 +2,9 @@
 ``metric``, ``train`` and ``export-motions``.
 
     python -m stabstitch2_tpu_torch.cli stitch --test_path <dataset> \
-        --output_path <dir> [--trace_dir <dir>] [shared flags]
+        [--output_path <dir>] [shared flags]
     python -m stabstitch2_tpu_torch.cli stitch-multi --video_dir <dir> \
-        --output <mp4 or dir> [shared flags]
+        [--output <mp4 or dir>] [shared flags]
     python -m stabstitch2_tpu_torch.cli metric --test_path <dataset> \
         [--max_videos N] [--out_json <file>] [shared flags]
 
@@ -19,10 +19,14 @@
 Shared flags: [--reference_pth_dir <dir>] [--preset ssd|tra]
 [--fusion_mode AVERAGE|LINEAR] [--warp_mode NORMAL|FAST] [--chunk N]
 [--download_format yuv420|bgr] [--upload_format i420|bgr]
-[--no_phase_sync] [--device cuda|cpu] [--seed N].
+[--no_phase_sync] [--trace_dir <dir>] [--device cuda|cpu] [--seed N];
+``--trace_dir`` traces ``stitch`` only, the other commands ignore it.
 
 ``stitch``: each <dataset>/<video>/video1 + video2 directory of jpgs
-becomes <output_path>/<video>.mp4. At the defaults, as the JAX CLI:
+becomes <output_path>/<video>.mp4 (default ``results/``; ``stitch-multi``
+writes ``out.mp4`` by default). Frames are decoded by the native loader
+(``data/native.py``, built on first use with g++ and libjpeg), with cv2
+as the fallback; the log names the decoder. At the defaults, as the JAX CLI:
 bfloat16 trunks, frames packed to I420 on the host (1.5 bytes per pixel;
 BGR for odd sizes), unpacked and resized to the model input on the
 device, the fused composite kernel, the yuv420 download; a loader thread
@@ -70,17 +74,19 @@ from typing import Callable, Iterable, Iterator, List, Optional, Tuple
 Loaded = Tuple[str, Optional[tuple], Optional[BaseException]]
 
 
-def load_videos(videos: Iterable[str], model_size: Tuple[int, int],
-                upload_format: str = "i420") -> Iterator[Loaded]:
-    """Decode each video directory; with ``upload_format`` 'i420' pack
-    the frames to I420 (odd sizes stay BGR). A video that fails to load
-    is yielded with its error, for the consumer to report."""
+def load_videos(videos: Iterable[str], upload_format: str = "i420"
+                ) -> Iterator[Loaded]:
+    """Decode each video directory (native, cv2 as the fallback; no
+    model-size frames: the stitcher makes the model input on the device);
+    with ``upload_format`` 'i420' pack the frames to I420 (odd sizes stay
+    BGR). A video that fails to load is yielded with its error, for the
+    consumer to report."""
     from stabstitch2_tpu_torch.data.video_io import (bgr_to_i420,
                                                      load_video_pair)
 
     for vd in videos:
         try:
-            hi1, _, hi2, _ = load_video_pair(vd, model_size=model_size)
+            hi1, _, hi2, _ = load_video_pair(vd, model_size=None)
         except (OSError, ValueError) as e:
             yield vd, None, e
             continue
@@ -194,6 +200,20 @@ def mp4_sink(output_path: str) -> Callable[[str, object], None]:
     return sink
 
 
+def report_decoder(done: bool = False) -> None:
+    """Log the frame decoder: before a run, whether the native loader is
+    available (the build's message where it is not); after it, how many
+    view loads each decoder ran (``data/video_io.py:DECODED``)."""
+    from stabstitch2_tpu_torch.data import native
+    from stabstitch2_tpu_torch.data.video_io import DECODED
+
+    if done:
+        print(f"frame decoder: {dict(DECODED)} view loads", flush=True)
+    elif not native.available():
+        print("frame decoder: cv2 (native loader unavailable: "
+              f"{native.build_error()})", file=sys.stderr, flush=True)
+
+
 def no_tf32() -> None:
     """float32 means float32 where it runs (SmoothNet, the geometry, the
     trainers and float32 parity runs): no TF32 convolutions or products."""
@@ -232,10 +252,11 @@ def cmd_stitch(args) -> int:
         print(f"no videos under {args.test_path}", file=sys.stderr)
         return 1
     os.makedirs(args.output_path, exist_ok=True)
-    loaded = threaded(load_videos(videos, (stitcher.model_h, stitcher.model_w),
-                                  args.upload_format))
+    report_decoder()
+    loaded = threaded(load_videos(videos, args.upload_format))
     done, failed = stitch_stream(stitcher, loaded, mp4_sink(args.output_path),
                                  trace_dir=args.trace_dir)
+    report_decoder(done=True)
     if done == 0:
         print("no videos stitched", file=sys.stderr)
         return 1
@@ -274,12 +295,13 @@ def cmd_stitch_multi(args) -> int:
     # clip writes --output itself
     if dataset:
         os.makedirs(args.output, exist_ok=True)
-    size = (stitcher.model_h, stitcher.model_w)
+    report_decoder()
 
     def load():
         for vd in clips:
             try:
-                his = [load_view(vd, v, size)[0] for v in view_dirs(vd)]
+                his = [load_view(vd, v, model_size=None)[0]
+                       for v in view_dirs(vd)]
             except (OSError, ValueError) as e:
                 yield vd, None, e
                 continue
@@ -303,6 +325,7 @@ def cmd_stitch_multi(args) -> int:
     done, failed = two_deep(threaded(load()),
                             lambda his: stitch_multi_begin(stitcher, his),
                             finish)
+    report_decoder(done=True)
     if done == 0:
         print("no videos stitched", file=sys.stderr)
         return 1
@@ -315,9 +338,11 @@ def cmd_metric(args) -> int:
     from stabstitch2_tpu_torch.metrics.harness import evaluate_dataset
 
     stitcher = build_stitcher(args)
+    report_decoder()
     report = evaluate_dataset(stitcher, args.test_path,
                               max_videos=args.max_videos,
                               upload=args.upload_format)
+    report_decoder(done=True)
     print(json.dumps({k: v for k, v in report.items() if k != "per_video"},
                      indent=2))
     if args.out_json:
@@ -402,6 +427,10 @@ def add_stitcher_args(p: argparse.ArgumentParser, download: str,
     p.add_argument("--no_phase_sync", action="store_true",
                    help="enqueue each video without the per-phase waits "
                         "(the phase ms become enqueue times)")
+    p.add_argument("--trace_dir", default=None,
+                   help="stitch: write a torch.profiler Chrome trace of each "
+                        "video's stitch_begin (host and card) here; the "
+                        "other commands accept it and ignore it")
     add_device_args(p)
 
 
@@ -418,10 +447,7 @@ def make_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("stitch", help="stitch two-view videos into mp4s")
     p.add_argument("--test_path", required=True,
                    help="dataset directory of <video>/video1+video2 jpgs")
-    p.add_argument("--output_path", required=True)
-    p.add_argument("--trace_dir", default=None,
-                   help="write a torch.profiler Chrome trace of each "
-                        "video's stitch_begin (host and card) here")
+    p.add_argument("--output_path", default="results/")
     add_stitcher_args(p, download="yuv420", upload="i420")
     p.set_defaults(fn=cmd_stitch)
 
@@ -430,7 +456,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--video_dir", required=True,
                    help="a clip directory of video1..videoN jpg folders, or "
                         "a dataset directory of such clips")
-    p.add_argument("--output", required=True,
+    p.add_argument("--output", default="out.mp4",
                    help="the mp4 of a single clip, or the directory of "
                         "<clip>.mp4 for a dataset")
     add_stitcher_args(p, download="yuv420", upload="i420")

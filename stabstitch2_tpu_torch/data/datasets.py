@@ -10,10 +10,12 @@
   ``selected_frames`` sorted random picks; videos shorter than 12 are
   skipped.
 
-Frames are decoded with cv2, resized to the model input and yielded as
-uint8 (the trainers normalize on the device). Every random draw is the
-JAX package's, from ``np.random.default_rng(seed)`` in the same order, so
-the batches, swaps and picks equal its cv2 path's on the same tree.
+Frames are decoded with cv2 per sample, and a spatial batch in one
+native decode (:func:`_decode_many`, cv2 where the loader is
+unavailable), resized to the model input and yielded as uint8 (the
+trainers normalize on the device). Every random draw is the JAX
+package's, from ``np.random.default_rng(seed)`` in the same order, so
+the batches, swaps and picks equal its on the same tree and decoder.
 :func:`batch_iterator` stacks items on a thread that stops when the
 consumer abandons it.
 """
@@ -40,6 +42,21 @@ def _load_image(path: str, width: int = MODEL_W,
     if img is None:
         raise IOError(f"failed to read {path}")
     return cv2.resize(img, (width, height))
+
+
+def _decode_many(paths: List[str], mh: int, mw: int) -> np.ndarray:
+    """Frames at the model size, uint8 [N, mh, mw, 3]: one native decode
+    on two threads (``data/native.py``), or cv2 frame by frame where the
+    loader is unavailable or fails."""
+    from stabstitch2_tpu_torch.data import native
+
+    if native.available():
+        try:
+            return native.decode_batch(paths, lo_size=(mh, mw),
+                                       want_hi=False, threads=2)[1]
+        except (IOError, RuntimeError):
+            pass
+    return np.stack([_load_image(p, mw, mh) for p in paths])
 
 
 def _video_dirs(root: str) -> List[str]:
@@ -74,12 +91,13 @@ class SpatialPairDataset:
         return a, b
 
     def get_batch(self, indices) -> Tuple[np.ndarray, np.ndarray]:
-        """A batch, with one draw of the swaps for all its pairs (what
+        """A batch: one decode of its 2B frames (:func:`_decode_many`) and
+        one draw of the swaps for all its pairs (what
         :func:`batch_iterator` calls, as the JAX package's does)."""
         mh, mw = self.model_size
         pairs = [self.samples[int(i)] for i in indices]
-        a = np.stack([_load_image(p1, mw, mh) for p1, _ in pairs])
-        b = np.stack([_load_image(p2, mw, mh) for _, p2 in pairs])
+        imgs = _decode_many([p for pair in pairs for p in pair], mh, mw)
+        a, b = imgs[0::2], imgs[1::2]
         if self.training:
             swap = (self.rng.random(len(pairs)) < 0.5)[:, None, None, None]
             return np.where(swap, b, a), np.where(swap, a, b)

@@ -2,15 +2,17 @@
 
 A video is a directory with ``video1/*.jpg`` and ``video2/*.jpg``; frames
 are used at native resolution (composite) and resized to the model input,
-normalized to [-1, 1]. Decoding is cv2 only; frames can be packed to I420
-for the upload (:func:`bgr_to_i420`); output is mp4 from uint8 BGR or from
-packed I420 (the yuv420 download). cv2 is imported by the functions that
-decode, convert or encode, so the compositor can use
-:func:`pack_i420_host` where cv2 is not installed.
+normalized to [-1, 1]. Decoding is native (``data/native.py``) with cv2
+as the fallback; frames can be packed to I420 for the upload
+(:func:`bgr_to_i420`); output is mp4 from uint8 BGR or from packed I420
+(the yuv420 download). cv2 is imported by the functions that decode,
+convert or encode, so the compositor can use :func:`pack_i420_host` where
+cv2 is not installed.
 """
 
 from __future__ import annotations
 
+import collections
 import glob
 import os
 from typing import List, Optional, Tuple
@@ -30,20 +32,46 @@ def list_frames(video_dir: str, view: str) -> List[str]:
     return sorted(glob.glob(os.path.join(video_dir, view, "*.jpg")))
 
 
-def load_view(video_dir: str, view: str,
-              model_size: Tuple[int, int] = (MODEL_H, MODEL_W),
-              want_hi: bool = True, normalize: bool = True
-              ) -> Tuple[Optional[np.ndarray], np.ndarray]:
-    """(hires uint8 [T, H, W, 3], model-size float32 [T, mh, mw, 3] in
-    [-1, 1]). ``want_hi=False`` gives None for the hires frames;
-    ``normalize=False`` keeps the model-size frames uint8 (the metric
-    harness normalizes them on the device)."""
-    import cv2
+# the decoder that each load_view call ran: {"native": n, "cv2": n}
+DECODED: collections.Counter = collections.Counter()
 
+
+def load_view(video_dir: str, view: str,
+              model_size: Optional[Tuple[int, int]] = (MODEL_H, MODEL_W),
+              use_native: bool = True, want_hi: bool = True,
+              normalize: bool = True
+              ) -> Tuple[Optional[np.ndarray], Optional[np.ndarray]]:
+    """(hires uint8 [T, H, W, 3], model-size float32 [T, mh, mw, 3] in
+    [-1, 1]).
+
+    Decodes with the native loader (``data/native.py``, libjpeg on a
+    thread pool, built on first use) and falls back to cv2 where it is
+    unavailable or fails (a frame that is no jpg, or of another size);
+    both give BGR uint8 and a half-pixel bilinear resize, and may differ
+    by a few levels (their IDCTs and the resize's rounding). Each call
+    counts the decoder that ran in :data:`DECODED`. ``want_hi=False``
+    gives None for the hires frames; ``normalize=False`` keeps the
+    model-size frames uint8 (the metric harness normalizes them on the
+    device); ``model_size=None`` skips the model-size frames (None), for
+    callers that make the model input on the device.
+    """
     paths = list_frames(video_dir, view)
     if not paths:
         raise FileNotFoundError(f"no frames in {video_dir}/{view}")
-    mh, mw = model_size
+    if use_native:
+        from stabstitch2_tpu_torch.data import native
+
+        if native.available():
+            try:
+                hi, lo = native.decode_batch(paths, lo_size=model_size,
+                                             want_hi=want_hi)
+                DECODED["native"] += 1
+                return hi, (lo.astype(np.float32) / 127.5 - 1.0
+                            if normalize and lo is not None else lo)
+            except (IOError, RuntimeError):
+                pass        # not a jpg, or of another size: cv2 below
+    import cv2
+
     hi, lo = [], []
     for p in paths:
         img = cv2.imread(p)
@@ -51,23 +79,30 @@ def load_view(video_dir: str, view: str,
             raise IOError(f"failed to read {p}")
         if want_hi:
             hi.append(img)
-        small = cv2.resize(img, (mw, mh))
-        lo.append(small.astype(np.float32) / 127.5 - 1.0 if normalize
-                  else small)
-    return (np.stack(hi) if want_hi else None), np.stack(lo)
+        if model_size is not None:
+            small = cv2.resize(img, model_size[::-1])
+            lo.append(small.astype(np.float32) / 127.5 - 1.0 if normalize
+                      else small)
+    DECODED["cv2"] += 1
+    return (np.stack(hi) if want_hi else None), (
+        np.stack(lo) if model_size is not None else None)
 
 
 def load_video_pair(video_dir: str,
-                    model_size: Tuple[int, int] = (MODEL_H, MODEL_W),
-                    want_hi: bool = True, normalize: bool = True):
+                    model_size: Optional[Tuple[int, int]] = (MODEL_H,
+                                                             MODEL_W),
+                    want_hi: bool = True, normalize: bool = True,
+                    use_native: bool = True):
     """Both views of a two-view video directory, cut to the shorter one
-    (the hires frames None without ``want_hi``)."""
-    hi1, lo1 = load_view(video_dir, "video1", model_size, want_hi, normalize)
-    hi2, lo2 = load_view(video_dir, "video2", model_size, want_hi, normalize)
-    T = min(len(lo1), len(lo2))
-    if not want_hi:
-        return None, lo1[:T], None, lo2[:T]
-    return hi1[:T], lo1[:T], hi2[:T], lo2[:T]
+    (the hires frames None without ``want_hi``, the model-size ones
+    without ``model_size``)."""
+    hi1, lo1 = load_view(video_dir, "video1", model_size, use_native,
+                         want_hi, normalize)
+    hi2, lo2 = load_view(video_dir, "video2", model_size, use_native,
+                         want_hi, normalize)
+    T = min(len(hi1 if lo1 is None else lo1), len(hi2 if lo2 is None else lo2))
+    cut = lambda x: None if x is None else x[:T]  # noqa: E731
+    return cut(hi1), cut(lo1), cut(hi2), cut(lo2)
 
 
 def bgr_to_i420(frames: np.ndarray) -> np.ndarray:

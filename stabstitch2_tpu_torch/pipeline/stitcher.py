@@ -7,6 +7,14 @@ model input is either given (``lo``) or made on the device from the
 frames by :func:`model_input` (antialiased bilinear resize, as
 ``jax.image.resize``), as in the JAX package.
 
+``upload_mode`` 'bulk' copies each view in one piece; 'stream' (when the
+model input is made on the device) copies chunk by chunk on a copy
+stream of its own, one event per chunk, starting chunk k+1's copy after
+chunk k's unpack, model input, spatial motion and temporal features,
+which wait only for their own chunk's copy: later copies run beside
+earlier chunks' kernels. Both run the motion nets on the same chunks
+(``pipeline/motion.py``) and give the same bits.
+
 :meth:`VideoStitcher.stitch_begin` enqueues a whole video and returns
 without waiting for the device except to fetch the meshes that size the
 canvas (and, with ``sync_phases``, at the phase marks);
@@ -19,7 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -110,9 +118,17 @@ class VideoStitcher:
     # so stitch_begin returns sooner and overlaps more of the previous
     # video's finish.
     sync_phases: bool = True
+    # 'bulk': one upload per view. 'stream': per-chunk uploads on a copy
+    # stream, each chunk's motion work started as its copy lands (only
+    # where the model input is made on the device; see the module
+    # docstring). Phase ms in stream mode: 'upload' is ~0, 'spatial'
+    # holds the staging, the copies and the temporal features, 'temporal'
+    # the temporal motion alone.
+    upload_mode: str = "bulk"
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        self._copy_stream = None
         for net in (self.spatial_net, self.temporal_net, self.smooth_net):
             net.to(self.device).eval()
         self._motion = MotionEstimator(self.spatial_net, self.temporal_net,
@@ -136,11 +152,15 @@ class VideoStitcher:
         make the model input from hi on the device (:func:`model_input`),
         which is what the CLI does.
 
-        As in the JAX package: without both lo, hi is uploaded as uint8;
-        with both, hi keeps its dtype, so float 0..255 frames take the
-        float composite route. Call :meth:`stitch_finish` to collect the
+        As in the JAX package: without both lo, hi is uploaded as uint8
+        (in ``upload_mode`` 'stream' it keeps its dtype, as there); with
+        both, hi keeps its dtype, so float 0..255 frames take the float
+        composite route. Call :meth:`stitch_finish` to collect the
         frames; a caller may begin the next video first.
         """
+        if self.upload_mode not in ("bulk", "stream"):
+            raise ValueError(f"upload_mode {self.upload_mode!r}: 'bulk' or "
+                             "'stream'")
         T = hi1.shape[0]
         window = self.config.window
         if T < window:
@@ -149,6 +169,10 @@ class VideoStitcher:
         given = lo1 is not None and lo2 is not None
         staging: List[torch.Tensor] = []
         mh, mw = self.model_h, self.model_w
+        if not given and self.upload_mode == "stream":
+            h1, h2, smooth = self._stream_motion_smooth(hi1, hi2, staging,
+                                                        timer)
+            return self._composite_begin(h1, h2, smooth, timer, T, staging)
         with annotate("upload"):
             # uint8 unless both lo are given; then float frames stay float
             h1, h2 = (self.upload_frames(h, staging, keep_float=given
@@ -161,13 +185,85 @@ class VideoStitcher:
                 l1, l2 = model_input(h1, mh, mw), model_input(h2, mh, mw)
         timer.mark("upload")
         smooth = self.motion_smooth(l1, l2, timer)
+        return self._composite_begin(h1, h2, smooth, timer, T, staging)
+
+    def _composite_begin(self, h1, h2, smooth, timer, T, staging
+                         ) -> _PendingStitch:
         with annotate("composite"):
             state = composite_begin(h1, h2, smooth["smooth_mesh1"],
                                     smooth["smooth_mesh2"],
                                     config=self.config, chunk=self.chunk,
-                                    model_size=(mh, mw))
+                                    model_size=(self.model_h, self.model_w))
         return _PendingStitch(composite=state, smooth=smooth, timer=timer,
                               T=T, staging=staging)
+
+    def upload_chunks(self, views, staging: List[torch.Tensor]
+                      ) -> Iterator[List[torch.Tensor]]:
+        """Yield each chunk of the ``views`` (frames [T, ...], BGR or packed
+        I420; uint8 stays uint8, any other dtype goes as float32, as the
+        JAX package's stream upload keeps it) on the device, one list per
+        chunk.
+
+        A chunk is copied only when the caller asks for the next one, so
+        its copy starts after the caller has enqueued the previous
+        chunk's work, and on a card runs beside those kernels: the chunk
+        is staged in page-locked memory (appended to ``staging``), copied
+        on the stitcher's copy stream, and the current stream waits for
+        that copy's event before it reads the chunk (allocated on the copy
+        stream, recorded on the current one).
+        """
+        cuda = self.device.type == "cuda"
+        if cuda and self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        compute = torch.cuda.current_stream(self.device) if cuda else None
+        for s, e in self._motion.chunks(views[0].shape[0]):
+            hosts = [pinned(np.ascontiguousarray(
+                v[s:e], np.uint8 if v.dtype == np.uint8 else np.float32),
+                self.device) for v in views]
+            staging.extend(hosts)
+            if not cuda:
+                yield hosts
+                continue
+            copy = self._copy_stream
+            with torch.cuda.stream(copy):
+                devs = [h.to(self.device, non_blocking=True) for h in hosts]
+            landed = torch.cuda.Event()
+            landed.record(copy)
+            compute.wait_event(landed)
+            for d in devs:
+                d.record_stream(compute)
+            yield devs
+
+    def _stream_motion_smooth(self, hi1, hi2, staging, timer):
+        """``upload_mode`` 'stream': chunk by chunk, both views' copies
+        (:meth:`upload_chunks`), then the chunk's I420 unpack, model
+        input, spatial motion and temporal features; then the temporal
+        motion from the features, and smoothing as in bulk. Returns
+        (frames1, frames2, the smoothing dict)."""
+        mh, mw = self.model_h, self.model_w
+        timer.mark("upload", sync=False)    # the copies run inside 'spatial'
+        frames1, frames2, sm1, sm2, f1, f2 = [], [], [], [], [], []
+        with annotate("spatial"):
+            for a, b in self.upload_chunks((hi1, hi2), staging):
+                a = unpack_i420_u8(a) if a.dim() == 3 else a
+                b = unpack_i420_u8(b) if b.dim() == 3 else b
+                frames1.append(a)
+                frames2.append(b)
+                l1, l2 = model_input(a, mh, mw), model_input(b, mh, mw)
+                m1, m2 = self._motion.spatial_chunk(l1, l2)
+                sm1.append(m1)
+                sm2.append(m2)
+                g1, g2 = self._motion.features_chunk(l1, l2)
+                f1.append(g1)
+                f2.append(g2)
+        timer.mark("spatial")
+        with annotate("temporal"):
+            tmotion = self._motion.temporal_from_features(torch.cat(f1, 0),
+                                                          torch.cat(f2, 0))
+        timer.mark("temporal")
+        smooth = self._smooth(torch.cat(sm1, 0), torch.cat(sm2, 0), *tmotion,
+                              timer)
+        return torch.cat(frames1, 0), torch.cat(frames2, 0), smooth
 
     def upload(self, x: np.ndarray, dtype, staging: List[torch.Tensor]
                ) -> torch.Tensor:
@@ -198,7 +294,6 @@ class VideoStitcher:
         and original meshes, per-window paths). Runs at the true T, with
         no waits; ``timer`` marks the phases ``spatial``, ``temporal`` and
         ``smooth``."""
-        mh, mw = self.model_h, self.model_w
         with annotate("spatial"):
             smotion1, smotion2 = self._motion.spatial(l1, l2)
         if timer is not None:
@@ -207,6 +302,12 @@ class VideoStitcher:
             tmotion1, tmotion2 = self._motion.temporal_pair(l1, l2)
         if timer is not None:
             timer.mark("temporal")
+        return self._smooth(smotion1, smotion2, tmotion1, tmotion2, timer)
+
+    def _smooth(self, smotion1, smotion2, tmotion1, tmotion2,
+                timer: Optional[PhaseTimer]) -> Dict[str, torch.Tensor]:
+        """Transport and the smoothing of every window (phase 'smooth')."""
+        mh, mw = self.model_h, self.model_w
         with annotate("smooth"):
             ts1, ts2 = transport_both_views(tmotion1, smotion1, tmotion2,
                                             smotion2, mh, mw)
@@ -241,8 +342,7 @@ class VideoStitcher:
                                                          write_video)
 
         # the model input is made on the device, as the JAX CLI does
-        hi1, _, hi2, _ = load_video_pair(
-            video_dir, model_size=(self.model_h, self.model_w))
+        hi1, _, hi2, _ = load_video_pair(video_dir, model_size=None)
         result = self.stitch_arrays(hi1, None, hi2, None)
         if output_path:
             t0 = time.perf_counter()

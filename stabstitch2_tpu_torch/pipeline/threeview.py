@@ -235,6 +235,5 @@ def stitch_multi_view(stitcher, video_dir: str) -> np.ndarray:
     views = view_dirs(video_dir)
     if len(views) < 2:
         raise ValueError(f"need >= 2 views in {video_dir}, found {views}")
-    his = [load_view(video_dir, v, (stitcher.model_h, stitcher.model_w))[0]
-           for v in views]
+    his = [load_view(video_dir, v, model_size=None)[0] for v in views]
     return stitch_multi_finish(stitch_multi_begin(stitcher, his))[0]

@@ -11,8 +11,13 @@ sample after each epoch and saves when it improves (the best score in a
 ``best_ssim.json`` sidecar, so a resumed run keeps it), or every epoch
 without a test set; the temporal loop saves every 20 epochs, the smooth
 loop every 10, both at the last. ``summary_dir`` imports tensorboardX
-only when it is given. ``on_step(step, metrics)``, when given, is called
-after every step (the metrics are tensors on the device, not waited on).
+only when it is given; the writer then takes the loss terms every 100th
+batch and, as the JAX package's loops do, image panels at every step
+that is a multiple of 300: the first sample's warps from the net in eval
+mode (spatial: ``output_H_ref``, ``output_H_tgt``, ``output_tps_ref``,
+``output_tps_tgt``; temporal: ``img_t0``, ``img_t1``, ``warp_mesh``;
+smooth: none). ``on_step(step, metrics)``, when given, is called after
+every step (the metrics are tensors on the device, not waited on).
 """
 
 from __future__ import annotations
@@ -40,6 +45,11 @@ from stabstitch2_tpu_torch.train.common import Optimizer, draw_aug, make_optimiz
 from stabstitch2_tpu_torch.utils.checkpoint import TrainCheckpointer
 
 OnStep = Optional[Callable[[int, Dict[str, torch.Tensor]], None]]
+# first-sample arrays of a numpy batch -> {panel name: float HWC in [0, 1]}
+Panels = Optional[Callable[..., Dict[str, np.ndarray]]]
+PANEL_EVERY = 300
+SPATIAL_PANELS = ("output_H_ref", "output_H_tgt", "output_tps_ref",
+                  "output_tps_tgt")
 
 
 @dataclasses.dataclass
@@ -98,6 +108,25 @@ def _log(writer, metrics, step: int) -> None:
             writer.add_scalar(k, float(v), step)
 
 
+def _unit(x: torch.Tensor) -> np.ndarray:
+    """An image in [-1, 1] as float HWC in [0, 1] on the host."""
+    return ((x + 1.0) / 2.0).clamp(0, 1).cpu().numpy()
+
+
+def _images(writer, net: nn.Module, panels: Panels, batch, step: int) -> None:
+    """Write ``panels(*batch)`` computed with the net in eval mode (its
+    BatchNorm layers read the running statistics and do not move them),
+    then put it back in train mode."""
+    net.eval()
+    try:
+        with torch.no_grad():
+            images = panels(*batch)
+    finally:
+        net.train()
+    for key, img in images.items():
+        writer.add_image(key, img, step, dataformats="HWC")
+
+
 def _save(ckpt: TrainCheckpointer, net: nn.Module, opt: Optimizer,
           epoch: int) -> str:
     return ckpt.save(opt.step_count, {
@@ -111,9 +140,11 @@ def _to(device, *arrays):
 
 
 def _epochs(name, dataset, cfg, net, opt, steps_per_epoch, start_epoch,
-            seed, writer, on_step, step_fn, after_epoch):
+            seed, writer, on_step, step_fn, after_epoch,
+            panels: Panels = None):
     """The shared epoch loop: ``step_fn(batch) -> metrics`` per step,
-    ``after_epoch(epoch)`` after each epoch."""
+    ``panels`` written at every PANEL_EVERY-th step, ``after_epoch(epoch)``
+    after each epoch."""
     device = next(net.parameters()).device
     metrics: Dict[str, torch.Tensor] = {}
     for epoch in range(start_epoch, cfg.max_epoch):
@@ -126,6 +157,9 @@ def _epochs(name, dataset, cfg, net, opt, steps_per_epoch, start_epoch,
                 metrics = step_fn(_to(device, *batch))
                 if bi % 100 == 0:
                     _log(writer, metrics, opt.step_count)
+                if (writer is not None and panels is not None
+                        and opt.step_count % PANEL_EVERY == 0):
+                    _images(writer, net, panels, batch, opt.step_count)
                 if on_step is not None:
                     on_step(opt.step_count, metrics)
         finally:
@@ -180,6 +214,10 @@ def train_spatial(train_path: str, test_path: Optional[str] = None,
         return spatial_train_step(net, opt, img1, img2, draw_aug(aug), cfg,
                                   vgg)
 
+    def panels(img1, img2):
+        out = spatial_train_outputs(net, *_to(dev, img1[:1], img2[:1]))
+        return {k: _unit(out[k][0, ..., :3]) for k in SPATIAL_PANELS}
+
     @torch.no_grad()
     def score() -> float:
         test = SpatialPairDataset(test_path, training=False,
@@ -211,7 +249,7 @@ def train_spatial(train_path: str, test_path: Optional[str] = None,
                 json.dump({"best_ssim": cur, "step": opt.step_count}, f)
 
     metrics = _epochs("spatial", dataset, cfg, net, opt, spe, start, seed,
-                      writer, on_step, step_fn, after_epoch)
+                      writer, on_step, step_fn, after_epoch, panels)
     return TrainRun(net, opt, metrics, ckpt)
 
 
@@ -222,7 +260,8 @@ def train_temporal(train_path: str, cfg: Optional[TemporalTrainConfig] = None,
                    model_h: int = 360, model_w: int = 480,
                    n_devices: Optional[int] = None, device="cuda",
                    on_step: OnStep = None) -> TrainRun:
-    from stabstitch2_tpu_torch.train.temporal import temporal_train_step
+    from stabstitch2_tpu_torch.train.temporal import (temporal_train_outputs,
+                                                      temporal_train_step)
 
     cfg = cfg or TemporalTrainConfig()
     dataset = TemporalPairDataset(train_path, cfg.train_frame_num, seed=seed,
@@ -237,12 +276,19 @@ def train_temporal(train_path: str, cfg: Optional[TemporalTrainConfig] = None,
         prev, nxt = batch
         return temporal_train_step(net, opt, prev, nxt, draw_aug(aug), cfg)
 
+    def panels(prev, nxt):
+        dev = next(net.parameters()).device
+        out = temporal_train_outputs(net, *_to(dev, prev[:1], nxt[:1]))
+        return {"img_t0": np.clip(prev[0].astype(np.float32) / 255.0, 0, 1),
+                "img_t1": np.clip(nxt[0].astype(np.float32) / 255.0, 0, 1),
+                "warp_mesh": _unit(out["output_mesh"][0, ..., :3])}
+
     def after_epoch(epoch):
         if (epoch + 1) % 20 == 0 or epoch + 1 == cfg.max_epoch:
             _save(ckpt, net, opt, epoch + 1)
 
     metrics = _epochs("temporal", dataset, cfg, net, opt, spe, start, seed,
-                      writer, on_step, step_fn, after_epoch)
+                      writer, on_step, step_fn, after_epoch, panels)
     return TrainRun(net, opt, metrics, ckpt)
 
 

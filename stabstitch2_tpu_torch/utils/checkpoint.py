@@ -89,8 +89,10 @@ def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 
 def stitcher_from_checkpoint(reference_pth_dir: Optional[str] = None,
-                             files=TRIAD, **init_kwargs):
-    """``init_stitcher(**init_kwargs)``, then the reference triad from
+                             files=TRIAD, upload_mode: str = "bulk",
+                             **init_kwargs):
+    """``init_stitcher(**init_kwargs)`` with ``upload_mode`` ('bulk' or
+    'stream', ``VideoStitcher.upload_mode``), then the reference triad from
     ``reference_pth_dir`` loaded into its models (strictly: every key must
     match). Without a directory the random weights stay. ``files`` names
     the ones to load, a part of :data:`TRIAD` (``export-motions`` needs
@@ -110,6 +112,7 @@ def stitcher_from_checkpoint(reference_pth_dir: Optional[str] = None,
                 f"reference triad incomplete in {reference_pth_dir}: "
                 f"missing {missing}")
     stitcher = init_stitcher(**init_kwargs)
+    stitcher.upload_mode = upload_mode
     if reference_pth_dir:
         nets = (stitcher.spatial_net, stitcher.temporal_net,
                 stitcher.smooth_net)

@@ -347,6 +347,32 @@ def test_begun_video_survives_the_next_begin(cuda_device):
                                    atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("packed", [False, True])
+def test_stream_upload_equals_bulk_two_deep(cuda_device, packed):
+    """``upload_mode="stream"`` (copies on the copy stream, one event per
+    chunk) with two videos begun before either is finished: each gives
+    the bulk upload's frames and meshes bit for bit, with a tail chunk."""
+    from stabstitch2_tpu_torch.data.video_io import bgr_to_i420
+    from synthetic import make_two_view_clip
+
+    st = init_stitcher(0, StitchConfig(download_format="yuv420"), model_h=128,
+                       model_w=160, chunk=4, device=cuda_device)
+    clips = []
+    for s in (5, 6):
+        v = make_two_view_clip(num_frames=10, height=128, width=160,
+                               overlap=0.6, shake_px=2.0, seed=s)
+        clips.append(tuple(bgr_to_i420(x) for x in v) if packed else v)
+    refs = [st.stitch_arrays(a, None, b, None) for a, b in clips]
+    st.upload_mode = "stream"
+    pending = [st.stitch_begin(a, None, b, None) for a, b in clips]
+    for p, ref in zip(pending, refs):
+        res = st.stitch_finish(p)
+        np.testing.assert_array_equal(res.frames, ref.frames)
+        for k in ("smooth_mesh1", "smooth_mesh2"):
+            torch.testing.assert_close(getattr(res, k), getattr(ref, k),
+                                       atol=0, rtol=0)
+
+
 def test_bf16_meshes_within_the_cpu_bound(cuda_device):
     """bf16 against float32 trunks on the card, on the seed-0 model and
     the clip of tests/test_torch_entry.py's bound (2 x 0.0702 px, twice

@@ -286,11 +286,11 @@ class TestPipeline:
         videos = sorted(str(p) for p in tmp_path.iterdir())
         got = {}
         done, failed = cli.stitch_stream(
-            st, cli.threaded(cli.load_videos(videos, (MH, MW))),
+            st, cli.threaded(cli.load_videos(videos)),
             lambda name, result: got.setdefault(name, result))
         assert (done, failed) == (3, 1) and sorted(got) == [
             "clip0", "clip1", "clip2"]
-        for vd, arrays, err in cli.load_videos(videos[:3], (MH, MW)):
+        for vd, arrays, err in cli.load_videos(videos[:3]):
             assert err is None and arrays[0].ndim == 3      # packed I420
             ref = st.stitch_arrays(*arrays)
             res = got[os.path.basename(vd)]
@@ -302,11 +302,10 @@ class TestPipeline:
     def test_odd_frames_fall_back_to_bgr(self, tmp_path):
         write_clip_dirs(str(tmp_path), num_frames=7, height=95, width=120,
                         seed=1)
-        [(_, arrays, err)] = list(cli.load_videos([str(tmp_path / "clip0")],
-                                                  (MH, MW)))
+        [(_, arrays, err)] = list(cli.load_videos([str(tmp_path / "clip0")]))
         assert err is None and arrays[0].shape == (7, 95, 120, 3)
         [(_, arrays, _)] = list(cli.load_videos([str(tmp_path / "clip0")],
-                                                (MH, MW), "bgr"))
+                                                "bgr"))
         assert arrays[0].shape == (7, 95, 120, 3)
 
 

@@ -399,8 +399,10 @@ def test_datasets_equal_jax_cv2_path(tree, kind, monkeypatch):
     from stabstitch2_tpu.data import datasets as jd
     from stabstitch2_tpu.data import native
     from stabstitch2_tpu_torch.data import datasets as td
+    from stabstitch2_tpu_torch.data import native as t_native
 
     monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(t_native, "available", lambda: False)
     n_j, ref = _batches(jd, kind, tree, seed=5)
     n_t, got = _batches(td, kind, tree, seed=5)
     assert n_j == n_t > 0 and len(got) == len(ref) > 0
