@@ -120,6 +120,23 @@ Phases, each printing one JSON line with its seconds:
     against autograd through the plain version on the recorded inputs
     (``phase_train``).
 
+15. ``devices``: multi-device (``stabstitch2_tpu_torch/parallel/``).
+    ``cli stitch`` at its defaults through ``cli.build_stitcher`` and
+    ``stitch_stream`` over DEVICE_VIDEOS clips of DEVICE_FRAMES frames at
+    360x480, the stitcher dealt over two replicas on the card (a device
+    list; the CLI takes only ``--n_devices``), in bulk and stream upload,
+    counted; gates: frames and meshes equal one replica's bit for bit,
+    one wait per ``stitch_begin``, K1 and K2 launched. Then two gloo
+    training ranks on the card (``parallel/train.py:run_ranks``) against
+    one process at batch 8, 360x480: the temporal net two steps, the
+    spatial net one (K1 and K3 differentiated, the global BatchNorm
+    across ranks); gates on the losses, gradients, parameters, the
+    ranks' TF32 settings and launches (:func:`devices_train`). Where two
+    or more cards are visible, the same over two cards (``--n_devices
+    2``, NCCL) and each kernel with its inputs on the last card against
+    its plain version; else it prints ``{"devices": {"multi_card":
+    "skipped: 1 card"}}``, a statement, not a pass (``phase_devices``).
+
 Phases 11-14 also hold every kernel that their path runs against its
 plain version on the card, on the inputs that path gave it (the latest
 call at each of up to HELD_PER_KERNEL shapes, ``PathInputs``): K2 and K3
@@ -232,6 +249,21 @@ FRAC_DIFF_GT1 = 1e-4
 # full width: twice the gap of the JAX package's own bf16 and float32
 # stitchers on the CPU (tests/test_torch_entry.py: JAX_BF16_GAP_PX 0.0702)
 BF16_MESH_BOUND_PX = 2 * 0.0702
+# the devices phase: cli stitch of DEVICE_VIDEOS clips of DEVICE_FRAMES
+# frames, and training ranks on one batch of DEVICE_BATCH pairs
+DEVICE_VIDEOS = 2
+DEVICE_FRAMES = 48
+DEVICE_BATCH = 8
+# N training ranks against one process: the loss (tests/test_torch_
+# train_steps.py's LOSS_RTOL) and the parameters after the steps (the JAX
+# package's mesh-against-single bound, tests/test_entry_and_multiview.py)
+RANKS_LOSS_RTOL = 1e-4
+RANKS_PARAM_RTOL, RANKS_PARAM_ATOL = 2e-3, 5e-4
+# and each gradient (relative L2): the gradient gate's bound, the trunks
+# (feature_extractor*) at tests/test_torch_train_steps.py's trunk bound;
+# ranks computing in TF32 (a fresh process's default) read 1.5e-2-0.12
+RANKS_GRAD_RTOL_L2 = 1e-2
+RANKS_TRUNK_GRAD_RTOL_L2 = 3e-2
 
 
 def emit(obj) -> None:
@@ -2230,6 +2262,280 @@ def phase_train(device, tmp):
             "held_against_plain": plain, "tps_coords_grads": tps_grads}
 
 
+
+def rank_cases(hw):
+    """The devices phase's training cases at full width: the temporal net,
+    two steps, and the spatial net, one step, each from its random init
+    on one batch of DEVICE_BATCH synthetic pairs, the augmentation drawn
+    from seeded generators."""
+    import numpy as np
+    import torch
+
+    from stabstitch2_tpu_torch.config import (SpatialTrainConfig,
+                                              TemporalTrainConfig)
+    from stabstitch2_tpu_torch.models import SpatialNet, TemporalNet
+    from stabstitch2_tpu_torch.models.backbone import init_weights
+    from stabstitch2_tpu_torch.train.common import draw_aug
+    from synthetic import make_two_view_clip
+
+    v1, v2 = make_two_view_clip(num_frames=DEVICE_BATCH, height=hw[0],
+                                width=hw[1], overlap=0.5, shake_px=4.0,
+                                seed=7)
+    batch = (v1.astype(np.float32) / 127.5 - 1.0,
+             v2.astype(np.float32) / 127.5 - 1.0)
+    cases = []
+    for stage, make, cfg, steps in (
+            ("temporal", TemporalNet, TemporalTrainConfig, 2),
+            ("spatial", SpatialNet, SpatialTrainConfig, 1)):
+        net = make(*hw)
+        init_weights(net, torch.Generator().manual_seed(0))
+        cases.append(dict(
+            stage=stage, model_size=tuple(hw), state_dict=net.state_dict(),
+            batch=batch, cfg=cfg(batch_size=DEVICE_BATCH),
+            factors=[draw_aug(torch.Generator().manual_seed(1 + i))
+                     for i in range(steps)]))
+    return cases
+
+
+def devices_train(devices, tag):
+    """Two ranks on ``devices`` (``parallel/train.py:run_ranks``; gloo on
+    one card, NCCL on two) against one process on the whole batch on the
+    first: the temporal net two steps, the spatial net one. Gates: every
+    step's loss within RANKS_LOSS_RTOL, the first step's gradients within
+    RANKS_GRAD_RTOL_L2 (trunks RANKS_TRUNK_GRAD_RTOL_L2), the parameters
+    after the last step within RANKS_PARAM_RTOL / RANKS_PARAM_ATOL (the
+    JAX package's mesh-against-single bound), the two ranks' states
+    equal, the ranks' TF32 settings the caller's, K1 (and in the spatial
+    step K3) launched on every rank, no rank importing JAX."""
+    import torch
+
+    from stabstitch2_tpu_torch.parallel import backend_for
+    from stabstitch2_tpu_torch.parallel import train as ptrain
+
+    cases = rank_cases(FRAME_HW)
+    t0 = time.perf_counter()
+    per_rank = ptrain.run_ranks(ptrain.cases_on_batches, devices,
+                                ([dict(c, world=len(devices))
+                                  for c in cases],), timeout=600.0)
+    ranks_s = time.perf_counter() - t0
+    out = {"devices": [str(d) for d in devices],
+           "backend": backend_for(devices), "ranks_s": ranks_s}
+    for i, case in enumerate(cases):
+        stage = case["stage"]
+        t0 = time.perf_counter()
+        one = ptrain.steps_on_batch(ptrain.Rank(0, 1, devices[0]), **case)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        res = [r[i] for r in per_rank]
+        require(not any(r["imports_jax"] for r in res),
+                f"{tag} {stage}: no rank imported JAX")
+        require(all(r["tf32"] == one["tf32"] for r in res),
+                f"{tag} {stage}: the ranks' TF32 settings are the caller's "
+                f"{one['tf32']}: {[r['tf32'] for r in res]}")
+        for r in res:
+            want = {"cost_volume": True, "tps_coords": stage == "spatial"}
+            got = {k: v > 0 for k, v in r["launches"].items()}
+            require(all(got[k] for k, v in want.items() if v),
+                    f"{tag} {stage}: K1/K3 launched on every rank "
+                    f"{r['launches']}")
+        for k, v in res[0]["state"].items():
+            require(torch.equal(v, res[1]["state"][k]),
+                    f"{tag} {stage}: the ranks' {k} equal")
+        losses = [(a["total"], b["total"])
+                  for a, b in zip(res[0]["metrics"], one["metrics"])]
+        loss_gap = max(abs(a - b) / abs(b) for a, b in losses)
+        require(loss_gap <= RANKS_LOSS_RTOL,
+                f"{tag} {stage}: loss {losses} within {RANKS_LOSS_RTOL}")
+        excess = 0.0
+        for k, v in one["state"].items():
+            if v.dtype.is_floating_point:
+                d = (res[0]["state"][k] - v).abs() - (
+                    RANKS_PARAM_ATOL + RANKS_PARAM_RTOL * v.abs())
+                excess = max(excess, float(d.max()))
+        require(excess <= 0.0, f"{tag} {stage}: parameters within rtol "
+                f"{RANKS_PARAM_RTOL}, atol {RANKS_PARAM_ATOL} ({excess})")
+        grads = {}
+        for k, g in one["grads"].items():
+            part = "trunk" if k.startswith("feature_extractor") else "heads"
+            rel = float((res[0]["grads"][k].double() - g.double()).norm()
+                        / g.double().norm())
+            grads[part] = max(grads.get(part, 0.0), rel)
+        require(grads["trunk"] <= RANKS_TRUNK_GRAD_RTOL_L2
+                and grads["heads"] <= RANKS_GRAD_RTOL_L2,
+                f"{tag} {stage}: gradients (relative L2) {grads} within "
+                f"{RANKS_TRUNK_GRAD_RTOL_L2} (trunk), {RANKS_GRAD_RTOL_L2}")
+        out[stage] = {"steps": len(case["factors"]),
+                      "loss_ranks_vs_one": losses, "loss_rel_gap": loss_gap,
+                      "param_excess": excess,
+                      "grad_rel_l2_ranks_vs_one": grads,
+                      "launches_per_rank": [r["launches"] for r in res],
+                      "step_s_ranks": [r["step_s"] for r in res],
+                      "step_s_one_process": one["step_s"],
+                      "one_process_s": one_s}
+    return out
+
+
+def devices_stitch(devices, data, tmp, tag):
+    """``cli stitch``'s loop (``build_stitcher``, the loader thread,
+    ``stitch_stream``) at the CLI's defaults over the clips in ``data``,
+    with the stitcher dealt over ``devices`` (a device list, or
+    ``--n_devices`` when the cards differ), in bulk and stream upload,
+    counted; against the one-device stitcher's frames and meshes, bit for
+    bit, and one wait per ``stitch_begin``."""
+    import torch
+
+    from stabstitch2_tpu_torch import cli
+    from stabstitch2_tpu_torch.data.video_io import list_videos
+    from stabstitch2_tpu_torch.ops import corr_cuda, fused_warp_cuda
+
+    argv = ["stitch", "--test_path", data, "--output_path",
+            os.path.join(tmp, "out")]
+    one = cli.build_stitcher(cli.make_parser().parse_args(argv))
+    if len(set(devices)) == len(devices):
+        args = cli.make_parser().parse_args(argv + ["--n_devices",
+                                                    str(len(devices))])
+    else:
+        args = cli.make_parser().parse_args(argv)
+        args.device = list(devices)
+    st = cli.build_stitcher(args)
+    require(st.devices == list(devices), f"{tag}: stitcher on {st.devices}")
+    videos = list_videos(data)
+    loaded = {os.path.basename(vd): arrays
+              for vd, arrays, _ in cli.load_videos(videos)}
+
+    def run(stitcher, mode):
+        got = {}
+        stitcher.upload_mode = mode
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done, failed = cli.stitch_stream(
+                stitcher, cli.threaded(cli.load_videos(videos)),
+                lambda name, r: got.__setitem__(name, r))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            stitcher.upload_mode = "bulk"
+        require((done, failed) == (len(videos), 0),
+                f"{tag} {mode}: stitched {done}, failed {failed}")
+        return got, wall
+
+    st.stitch_arrays(*loaded[sorted(loaded)[0]])       # warm-up
+    one.stitch_arrays(*loaded[sorted(loaded)[0]])
+    out = {"devices": [str(d) for d in st.devices],
+           "replicas": len(st._motion.replicas)}
+    frames = DEVICE_VIDEOS * DEVICE_FRAMES
+    for mode in ("bulk", "stream"):
+        ref, one_s = run(one, mode)
+        corr_cuda.LAUNCHES.clear()
+        fused_warp_cuda.LAUNCHES.clear()
+        got, wall = run(st, mode)
+        launches = {"cost_volume": sum(corr_cuda.LAUNCHES.values()),
+                    "fused_warp": fused_warp_cuda.LAUNCHES["fused_warp"]}
+        require(all(v > 0 for v in launches.values()),
+                f"{tag} {mode}: K1 and K2 launched: {launches}")
+        for name, r in ref.items():
+            same = (r.frames.shape == got[name].frames.shape
+                    and bool((r.frames == got[name].frames).all())
+                    and mesh_gap(r, got[name]) == 0.0)
+            require(same, f"{tag} {mode} {name}: frames and meshes of "
+                          f"{len(devices)} devices equal one device's")
+        st.upload_mode = mode
+        try:
+            syncs = begin_syncs(st, loaded[sorted(loaded)[0]])
+        finally:
+            st.upload_mode = "bulk"
+        require(len(syncs) == 1, f"{tag} {mode}: one wait per stitch_begin "
+                                 f"(the canvas fetch): {syncs}")
+        out[mode] = {"bit_equal_to_one_device": True, "launches": launches,
+                     "fps": frames / wall, "fps_one_device": frames / one_s,
+                     "stitch_begin_waits": len(syncs)}
+    return out
+
+
+def kernels_on(card, warp):
+    """Each kernel's wrapper with its inputs on ``card`` against its plain
+    version there (the kernels phase's tolerances); ``warp`` is the main
+    path's first chunk (:func:`first_chunk`)."""
+    import torch
+
+    from stabstitch2_tpu_torch.ops import (corr_cuda, fused_warp_cuda,
+                                           patch_gather_cuda, tps_coords_cuda)
+
+    gen = torch.Generator().manual_seed(0)
+    h8, w8 = FRAME_HW[0] // 8, FRAME_HW[1] // 8
+    x1, x2 = (torch.randn(8, h8, w8, 128, generator=gen).to(card)
+              for _ in range(2))
+    out = {}
+    for r in (5, 3):
+        got = corr_cuda.cost_volume_cuda(x1, x2, r)
+        ref = corr_cuda.cost_volume_plain(x1, x2, r)
+        err = float((got - ref).abs().max())
+        require(got.device == card and err <= CV_ATOL + 1e-5 * float(
+            ref.abs().max()), f"cost_volume r={r} on {card}: {err}")
+        out[f"cost_volume_r{r}"] = err
+    im, T, src, size, span = (t.to(card) if torch.is_tensor(t) else t
+                              for t in warp)
+    got = fused_warp_cuda.fused_warp_planes(im, T, src, size, span)
+    ref = fused_warp_cuda.fused_warp_planes_plain(im, T, src, size, span)
+    require(got[0].device == card and all(
+        torch.equal(g, r) for g, r in zip(got[:4], ref[:4])),
+        f"fused_warp on {card} equals its plain version")
+    out["fused_warp"] = 0.0
+    x, y = tps_coords_cuda.tps_coords(T, src, size, grid_span=span)
+    xr, yr = tps_coords_cuda.tps_coords_plain(T, src, size, grid_span=span)
+    require(x.device == card and torch.equal(x, xr) and torch.equal(y, yr),
+            f"tps_coords on {card} equals its plain version")
+    out["tps_coords"] = 0.0
+    got = patch_gather_cuda.bilinear_sample_patch_u8_cuda(im, x, y, size)
+    ref = patch_gather_cuda.patch_gather_plain(im, x, y, size, False)
+    err = float((got[0] - ref[0]).abs().max())
+    require(got[0].device == card and err <= GATHER_ATOL,
+            f"patch_gather on {card}: {err}")
+    out["patch_gather"] = err
+    return out
+
+
+def phase_devices(device, tmp, warp):
+    """Multi-device: ``cli stitch`` dealt over two replicas on one card
+    (bulk and stream) against one replica, bit for bit
+    (:func:`devices_stitch`); two gloo training ranks on that card
+    against one process (:func:`devices_train`); and, only where two or
+    more cards are visible, the same over two cards (``--n_devices 2``,
+    NCCL) and each kernel on the last card (:func:`kernels_on`)."""
+    import torch
+
+    from synthetic import write_clip_dirs
+
+    smi = nvidia_smi()
+    data = os.path.join(tmp, "devices")
+    for seed in range(DEVICE_VIDEOS):
+        write_clip_dirs(data, num_frames=DEVICE_FRAMES, height=FRAME_HW[0],
+                        width=FRAME_HW[1], seed=40 + seed,
+                        video_name=f"clip{seed}")
+    one_card = [device, device]
+    info = {"phase": "devices", "card": smi, "frame_hw": list(FRAME_HW),
+            "videos": DEVICE_VIDEOS, "frames_per_video": DEVICE_FRAMES,
+            "stitch_one_card": devices_stitch(one_card, data, tmp,
+                                              "two replicas on one card"),
+            "train_one_card": devices_train(one_card, "two gloo ranks"),
+            "held_against_plain": {}}
+    count = torch.cuda.device_count()
+    if count < 2:
+        info["multi_card"] = "skipped: 1 card"
+        emit({"devices": {"multi_card": "skipped: 1 card"}})
+        return info
+    cards = [torch.device("cuda", i) for i in range(2)]
+    last = torch.device("cuda", count - 1)
+    info["multi_card"] = {
+        "cards": count,
+        "stitch": devices_stitch(cards, data, tmp, "two cards"),
+        "train": devices_train(cards, "two NCCL ranks"),
+        "kernels_on_last_card": {"card": str(last),
+                                 "max_abs_err": kernels_on(last, warp)}}
+    return info
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -2334,8 +2640,10 @@ def main() -> int:
     cmp_ = phase_cpu_compare(st, clip)
     cmp_["seconds"] = time.perf_counter() - t
     emit(cmp_)
+    warp = first_chunk(st, res, clip)
 
-    for run in (phase_online, phase_multi, phase_metric, phase_train):
+    for run in (phase_online, phase_multi, phase_metric, phase_train,
+                lambda dev, tmp: phase_devices(dev, tmp, warp)):
         with tempfile.TemporaryDirectory() as tmp:
             t = time.perf_counter()
             info = run(device, tmp)

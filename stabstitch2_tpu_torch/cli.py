@@ -11,16 +11,19 @@
     python -m stabstitch2_tpu_torch.cli train {spatial,temporal,smooth} \
         --train_path <dataset> [--test_path <dataset>] [--preset ssd|tra] \
         [--model_dir <dir>] [--summary_dir <dir>] [--max_epoch N] \
-        [--max_steps_per_epoch N] [--vgg_pth <file>] [--device cuda|cpu] \
-        [--seed N]
+        [--max_steps_per_epoch N] [--vgg_pth <file>] [--n_devices N] \
+        [--device cuda|cpu] [--seed N]
     python -m stabstitch2_tpu_torch.cli export-motions --train_path <dataset> \
         [--which spatial|temporal|both] [shared flags]
 
 Shared flags: [--reference_pth_dir <dir>] [--preset ssd|tra]
 [--fusion_mode AVERAGE|LINEAR] [--warp_mode NORMAL|FAST] [--chunk N]
 [--download_format yuv420|bgr] [--upload_format i420|bgr]
-[--no_phase_sync] [--trace_dir <dir>] [--device cuda|cpu] [--seed N];
-``--trace_dir`` traces ``stitch`` only, the other commands ignore it.
+[--no_phase_sync] [--trace_dir <dir>] [--n_devices N] [--device cuda|cpu]
+[--seed N]; ``--trace_dir`` traces ``stitch`` only, the other commands
+ignore it. ``--n_devices N`` deals the chunks of every video over N cards
+(N replicas on the CPU with ``--device cpu``), with the frames of one
+card; it raises when fewer cards are visible.
 
 ``stitch``: each <dataset>/<video>/video1 + video2 directory of jpgs
 becomes <output_path>/<video>.mp4 (default ``results/``; ``stitch-multi``
@@ -238,7 +241,7 @@ def build_stitcher(args, files=None):
     stitcher = stitcher_from_checkpoint(
         reference_pth_dir=args.reference_pth_dir, files=files or TRIAD,
         rng_seed=args.seed, config=config, chunk=args.chunk,
-        device=args.device)
+        n_devices=args.n_devices, device=args.device)
     stitcher.sync_phases = not args.no_phase_sync
     return stitcher
 
@@ -431,6 +434,10 @@ def add_stitcher_args(p: argparse.ArgumentParser, download: str,
                    help="stitch: write a torch.profiler Chrome trace of each "
                         "video's stitch_begin (host and card) here; the "
                         "other commands accept it and ignore it")
+    p.add_argument("--n_devices", type=int, default=None,
+                   help="data-parallel inference: deal the frame chunks over "
+                        "this many cards (replicas on the CPU with --device "
+                        "cpu); raises if fewer cards are visible")
     add_device_args(p)
 
 
@@ -494,7 +501,10 @@ def make_parser() -> argparse.ArgumentParser:
                         "recipe's perceptual term (spatial stage); required "
                         "when the preset weighs it")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="more than 1 is not ported yet (raises)")
+                   help="data-parallel training: this many processes "
+                        "(torch.distributed; NCCL over cards, gloo on the "
+                        "CPU), each on its rows of the batch, BatchNorm over "
+                        "the global batch; raises if fewer cards are visible")
     add_device_args(p)
     p.set_defaults(fn=cmd_train)
 

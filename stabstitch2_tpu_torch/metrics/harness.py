@@ -9,10 +9,10 @@ their overlap. The float images warp through ``tps_warp_with_mask``: K3
 evaluates the spline on the card, then the float ``bilinear_sample``.
 Scores are aggregated per StabStitch-D difficulty category and overall.
 
-Eager and at the true frame count: a video is one upload (uint8 BGR, or
-packed I420 with ``upload='i420'``), normalized on the device, and one
-fetch of its scores; a dataset submits video k+1 before it collects
-video k.
+Eager and at the true frame count: a video is one upload per view (uint8
+BGR, or packed I420 with ``upload='i420'``; per device, its chunks, when
+the stitcher has several), normalized on the device, and one fetch of its
+scores; a dataset submits video k+1 before it collects video k.
 """
 
 from __future__ import annotations
@@ -29,7 +29,6 @@ from stabstitch2_tpu_torch.metrics.scores import (continue_paths,
                                                   stability_score)
 from stabstitch2_tpu_torch.ops.mesh import mesh_points, normalize_mesh, rigid_mesh
 from stabstitch2_tpu_torch.ops.tps import tps_warp_with_mask
-from stabstitch2_tpu_torch.pipeline.stitcher import model_input
 
 # StabStitch-D difficulty categories (the reference's test_metric_ssd.py)
 SSD_CATEGORIES = {
@@ -38,16 +37,6 @@ SSD_CATEGORIES = {
     "LT": ["0000021", "0000037", "0000040", "00000140", "ML001"],
     "MF": ["00000168", "00000175", "00000224", "MR006", "SF34"],
 }
-
-
-def _upload(stitcher, lo: np.ndarray, staging: List[torch.Tensor]
-            ) -> torch.Tensor:
-    """uint8 BGR, packed I420 or float [-1, 1] model-size frames onto the
-    device as the model input, float32 [-1, 1]."""
-    if lo.dtype != np.uint8:
-        return stitcher.upload(lo, np.float32, staging)
-    return model_input(stitcher.upload_frames(lo, staging), stitcher.model_h,
-                       stitcher.model_w)
 
 
 @torch.no_grad()
@@ -67,8 +56,8 @@ def _submit_video(stitcher, lo1: np.ndarray, lo2: np.ndarray,
         if packable(lo1) and packable(lo2):
             lo1, lo2 = bgr_to_i420(lo1), bgr_to_i420(lo2)
     staging: List[torch.Tensor] = []
-    l1 = _upload(stitcher, lo1, staging)
-    l2 = _upload(stitcher, lo2, staging)
+    l1 = stitcher.model_inputs(lo1, staging)
+    l2 = stitcher.model_inputs(lo2, staging)
     smooth = stitcher.motion_smooth(l1, l2)
     ori, sm = continue_paths(smooth["win_ori_path2"],
                              smooth["win_smooth_path2"])
@@ -76,25 +65,27 @@ def _submit_video(stitcher, lo1: np.ndarray, lo2: np.ndarray,
                           distortion_score(smooth["ori_mesh2"]),
                           distortion_score(smooth["smooth_mesh2"])])
 
-    T, mh, mw = l1.shape[0], stitcher.model_h, stitcher.model_w
-    rigid = rigid_mesh(mh, mw, device=l1.device)
-    norm_rigid = mesh_points(normalize_mesh(rigid, mh, mw))
+    mh, mw = stitcher.model_h, stitcher.model_w
     batched_psnr, batched_ssim = torch.vmap(psnr), torch.vmap(ssim)
 
     def warp(lo, mesh):
-        src = mesh_points(normalize_mesh(mesh, mh, mw))
+        rigid = rigid_mesh(mh, mw, device=lo.device)
+        norm_rigid = mesh_points(normalize_mesh(rigid, mh, mw))
+        src = mesh_points(normalize_mesh(mesh.to(lo.device), mh, mw))
         return tps_warp_with_mask((lo + 1.0) * 127.5, src,
                                   norm_rigid[None].expand(src.shape),
                                   (mh, mw), mode="NORMAL")
 
-    ps, ss = [], []
-    for s in range(0, T, stitcher.chunk):
-        e = min(s + stitcher.chunk, T)
-        w1, k1 = warp(l1[s:e], smooth["smooth_mesh1"][s:e])
-        w2, k2 = warp(l2[s:e], smooth["smooth_mesh2"][s:e])
+    # chunk by chunk, each on the device that holds its model input
+    ps, ss, s = [], [], 0
+    for a, b in zip(l1, l2):
+        e = s + a.shape[0]
+        w1, k1 = warp(a, smooth["smooth_mesh1"][s:e])
+        w2, k2 = warp(b, smooth["smooth_mesh2"][s:e])
         ov = (k1 * k2)[..., None]
-        ps.append(batched_psnr(w1 * ov, w2 * ov))
-        ss.append(batched_ssim(w1 * ov, w2 * ov))
+        ps.append(batched_psnr(w1 * ov, w2 * ov).to(scores.device))
+        ss.append(batched_ssim(w1 * ov, w2 * ov).to(scores.device))
+        s = e
     return torch.cat(ps), torch.cat(ss), scores, staging
 
 

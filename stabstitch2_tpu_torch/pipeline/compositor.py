@@ -41,7 +41,7 @@ assembles the frames. A caller can begin the next video in between.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -196,6 +196,15 @@ def frames_to_device(x, device) -> torch.Tensor:
     return x.to(device)
 
 
+def chunk_frames(x, k: int, s: int, e: int, device) -> torch.Tensor:
+    """Frames s..e of a video, chunk ``k``: of a chunk list, the chunk
+    itself on its own device; of one array or tensor, the slice moved to
+    ``device`` (:func:`frames_to_device`)."""
+    if isinstance(x, list):
+        return x[k]
+    return frames_to_device(x[s:e], device)
+
+
 @dataclasses.dataclass
 class PendingComposite:
     """A video's composite in flight (:func:`composite_begin`)."""
@@ -203,8 +212,10 @@ class PendingComposite:
     host: List[torch.Tensor]    # uint8 Y, U, V [T, ..] or BGR [T, oh, ow, 3]
     canvas: Canvas
     out_format: str
-    computed: Optional[torch.cuda.Event]  # the last chunk's compute is done
-    copied: Optional[torch.cuda.Event]    # every copy into `host` is done
+    # per card that ran chunks: its last chunk's compute is done, and
+    # every copy from it into `host` is done (none on the CPU)
+    computed: List[torch.cuda.Event]
+    copied: List[torch.cuda.Event]
 
 
 def record_event(device: torch.device) -> Optional[torch.cuda.Event]:
@@ -215,10 +226,12 @@ def record_event(device: torch.device) -> Optional[torch.cuda.Event]:
     return event
 
 
-def wait(event: Optional[torch.cuda.Event]) -> None:
-    """Wait for the card up to ``event`` (None: nothing is in flight)."""
-    if event is not None:
-        event.synchronize()
+def wait(events) -> None:
+    """Wait for the card up to each event of ``events`` (one event, a list,
+    or None: nothing is in flight)."""
+    for event in events if isinstance(events, list) else [events]:
+        if event is not None:
+            event.synchronize()
 
 
 def host_buffer(shape, dtype: torch.dtype, device: torch.device
@@ -280,10 +293,12 @@ def plan_canvas(mesh1: torch.Tensor, mesh2: torch.Tensor,
 def enqueue_chunks(run: Callable, T: int, chunk: int, canvas: Canvas,
                    config: StitchConfig, device: torch.device
                    ) -> PendingComposite:
-    """Enqueue ``run(s, e, out_format)``, the padded composite of frames
-    s..e, chunk by chunk, and each crop's copy into host buffers:
-    page-locked and ``non_blocking`` on a card, so nothing here waits for
-    the device. NORMAL-mode yuv420 off the fused route is chained
+    """Enqueue ``run(k, s, e, out_format)``, the padded composite of frames
+    s..e (chunk k) on whichever device runs that chunk, chunk by chunk,
+    and each crop's copy into host buffers: page-locked and
+    ``non_blocking`` on a card, so nothing here waits for the device.
+    ``device`` is the first device (it sizes the host buffers' pinning).
+    NORMAL-mode yuv420 off the fused route is chained
     (:func:`chains_yuv420`)."""
     out_format = config.download_format
     chain_yuv = chains_yuv420(config, out_format)
@@ -291,10 +306,10 @@ def enqueue_chunks(run: Callable, T: int, chunk: int, canvas: Canvas,
     shapes = ([(T, oh, ow), (T, oh // 2, ow // 2), (T, oh // 2, ow // 2)]
               if out_format == "yuv420" else [(T, oh, ow, 3)])
     host = [host_buffer(s, torch.uint8, device) for s in shapes]
-    computed = None
-    for s in range(0, T, chunk):
+    computed: Dict[torch.device, Optional[torch.cuda.Event]] = {}
+    for k, s in enumerate(range(0, T, chunk)):
         e = min(s + chunk, T)
-        out = run(s, e, "bgr" if chain_yuv else out_format)
+        out = run(k, s, e, "bgr" if chain_yuv else out_format)
         if chain_yuv:
             out = bgr_u8_to_yuv420(out)
         if out_format == "yuv420":
@@ -303,39 +318,53 @@ def enqueue_chunks(run: Callable, T: int, chunk: int, canvas: Canvas,
                      v[:, :oh // 2, :ow // 2])
         else:
             crops = (out[:, :oh, :ow],)
-        if e == T:
-            computed = record_event(device)
+        dev = crops[0].device
+        computed[dev] = record_event(dev)   # its latest chunk's compute
         copy_to_host([h[s:e] for h in host], crops)
-    return PendingComposite(host=host, canvas=canvas, out_format=out_format,
-                            computed=computed, copied=record_event(device))
+    copied = [record_event(d) for d in computed]
+    return PendingComposite(
+        host=host, canvas=canvas, out_format=out_format,
+        computed=[e for e in computed.values() if e is not None],
+        copied=[e for e in copied if e is not None])
 
 
 def composite_begin(img1, img2, smooth_mesh1: torch.Tensor,
                     smooth_mesh2: torch.Tensor,
                     config: Optional[StitchConfig] = None, chunk: int = 8,
                     model_size: Tuple[int, int] = (MODEL_H, MODEL_W)):
-    """Launch a whole video's composite on the meshes' device.
+    """Launch a whole video's composite.
 
     img1/img2: [T, H, W, 3] uint8 (numpy or tensor; a float tensor takes
-    the float route); smooth_mesh*: [T, GH+1, GW+1, 2] model-resolution
-    meshes. Returns the pending state for :func:`composite_finish`; after
-    the canvas fetch nothing waits for the device
-    (:func:`enqueue_chunks`).
+    the float route), or chunk lists (chunk k of ``chunk`` frames on the
+    device that runs it, as a stitcher on several devices deals them);
+    smooth_mesh*: [T, GH+1, GW+1, 2] model-resolution meshes. Chunks of a
+    whole video run on the meshes' device. Returns the pending state for
+    :func:`composite_finish`; after the canvas fetch nothing waits for the
+    device (:func:`enqueue_chunks`).
     """
     config = config or StitchConfig()
     fused = fused_route(config)
     device = smooth_mesh1.device
-    T, H, W, _ = img1.shape
+    if isinstance(img1, list):
+        T = sum(x.shape[0] for x in img1)
+        H, W = img1[0].shape[1:3]
+    else:
+        T, H, W, _ = img1.shape
     m1 = scale_meshes(smooth_mesh1, H, W, *model_size)
     m2 = scale_meshes(smooth_mesh2, H, W, *model_size)
     canvas, grid_span = plan_canvas(m1, m2, config)
-    offset = constant([canvas.x_min, canvas.y_min], torch.float32, device)
+    offsets = {}
 
-    def run(s, e, out_format):
-        return composite_chunk(frames_to_device(img1[s:e], device),
-                               frames_to_device(img2[s:e], device),
-                               m1[s:e], m2[s:e], offset,
-                               (canvas.pad_h, canvas.pad_w),
+    def run(k, s, e, out_format):
+        a = chunk_frames(img1, k, s, e, device)
+        b = chunk_frames(img2, k, s, e, device)
+        dev = a.device
+        if dev not in offsets:
+            offsets[dev] = constant([canvas.x_min, canvas.y_min],
+                                    torch.float32, dev)
+        return composite_chunk(a, b, m1[s:e].to(dev, non_blocking=True),
+                               m2[s:e].to(dev, non_blocking=True),
+                               offsets[dev], (canvas.pad_h, canvas.pad_w),
                                config.fusion_mode, grid_span,
                                warp_mode=config.warp_mode,
                                out_format=out_format,
@@ -352,8 +381,8 @@ def composite_finish(state: PendingComposite, timer=None
     [T, oh*3//2, ow] for yuv420, packed here on the host.
 
     ``timer`` (a ``utils.profiling.PhaseTimer``) gets ``warp_fuse``, until
-    the last chunk's compute is done, and ``download``, the copies'
-    remainder, as in the JAX package.
+    each device's last chunk's compute is done, and ``download``, the
+    copies' remainder, as in the JAX package.
     """
     wait(state.computed)
     if timer is not None:

@@ -15,6 +15,15 @@ which wait only for their own chunk's copy: later copies run beside
 earlier chunks' kernels. Both run the motion nets on the same chunks
 (``pipeline/motion.py``) and give the same bits.
 
+On several devices (``init_stitcher(n_devices=N)``, the JAX package's
+data-parallel inference) one process deals the chunks round-robin: chunk
+k of the upload, the motion nets and the composite runs on device k mod
+N, which holds a replica of the motion nets; the motions are gathered on
+the first device, which smooths them, and each composite chunk is
+downloaded from its device into the one host result. Every chunk runs at
+the shape and through the kernels it has on one device, so the frames
+equal one device's bit for bit.
+
 :meth:`VideoStitcher.stitch_begin` enqueues a whole video and returns
 without waiting for the device except to fetch the meshes that size the
 canvas (and, with ``sync_phases``, at the phase marks);
@@ -25,6 +34,7 @@ staging buffers live in the pending state until the video is finished.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import Dict, Iterator, List, Optional
@@ -41,7 +51,9 @@ from stabstitch2_tpu_torch.pipeline.compositor import (Canvas,
                                                        PendingComposite,
                                                        composite_begin,
                                                        composite_finish)
-from stabstitch2_tpu_torch.pipeline.motion import MotionEstimator
+from stabstitch2_tpu_torch.parallel.devices import (resolve_device,
+                                                    resolve_devices)
+from stabstitch2_tpu_torch.pipeline.motion import Frames, MotionEstimator
 from stabstitch2_tpu_torch.pipeline.smoothing import smooth_all_windows
 from stabstitch2_tpu_torch.pipeline.transport import (
     stitched_meshes,
@@ -91,18 +103,10 @@ def model_input(hi: torch.Tensor, mh: int, mw: int) -> torch.Tensor:
     return x / 127.5 - 1.0
 
 
-def resolve_device(device) -> torch.device:
-    """The device to run on; a CUDA device must exist, there is no fallback."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but no CUDA device is "
-                           "available (pass device='cpu' to run on the CPU)")
-    return device
-
-
 @dataclasses.dataclass
 class VideoStitcher:
-    """The model triad on one device and the pipeline around it."""
+    """The model triad and the pipeline around it, on one device or dealt
+    over several (``devices``)."""
 
     spatial_net: SpatialNet
     temporal_net: TemporalNet
@@ -118,21 +122,49 @@ class VideoStitcher:
     # so stitch_begin returns sooner and overlaps more of the previous
     # video's finish.
     sync_phases: bool = True
-    # 'bulk': one upload per view. 'stream': per-chunk uploads on a copy
-    # stream, each chunk's motion work started as its copy lands (only
-    # where the model input is made on the device; see the module
-    # docstring). Phase ms in stream mode: 'upload' is ~0, 'spatial'
-    # holds the staging, the copies and the temporal features, 'temporal'
-    # the temporal motion alone.
+    # 'bulk': one upload per view (and device). 'stream': per-chunk
+    # uploads on a copy stream, each chunk's motion work started as its
+    # copy lands (only where the model input is made on the device; see
+    # the module docstring). Phase ms in stream mode: 'upload' is ~0,
+    # 'spatial' holds the staging, the copies and the temporal features,
+    # 'temporal' the temporal motion alone.
     upload_mode: str = "bulk"
+    # the devices the chunks are dealt over, chunk k to devices[k mod N]
+    # (``init_stitcher(n_devices=N)``); None: ``device`` alone. The nets
+    # above live on the first; the others hold copies of the motion nets.
+    devices: Optional[List[torch.device]] = None
 
     def __post_init__(self):
-        self.device = resolve_device(self.device)
-        self._copy_stream = None
+        if self.devices:
+            self.devices = [resolve_device(d) for d in self.devices]
+            self.device = self.devices[0]
+        else:
+            self.device = resolve_device(self.device)
+            self.devices = [self.device]
+        self._copy_streams: Dict[torch.device, torch.cuda.Stream] = {}
         for net in (self.spatial_net, self.temporal_net, self.smooth_net):
             net.to(self.device).eval()
-        self._motion = MotionEstimator(self.spatial_net, self.temporal_net,
-                                       chunk=self.chunk)
+        self._estimator: Optional[MotionEstimator] = None
+        self._stamp = None
+
+    @property
+    def _motion(self) -> MotionEstimator:
+        """The motion nets, one replica per device: the nets themselves on
+        the first device, copies on the others, copied again whenever the
+        nets' weights have changed since (a checkpoint loaded after the
+        stitcher was made, say), so every replica holds the same weights."""
+        nets = (self.spatial_net, self.temporal_net)
+        stamp = (tuple(map(id, nets)), self.chunk)
+        if len(self.devices) > 1:
+            stamp += tuple(t._version for net in nets
+                           for t in (*net.parameters(), *net.buffers()))
+        if self._estimator is None or stamp != self._stamp:
+            replicas = [nets] + [
+                tuple(copy.deepcopy(net).to(d).eval() for net in nets)
+                for d in self.devices[1:]]
+            self._estimator = MotionEstimator(replicas, chunk=self.chunk)
+            self._stamp = stamp
+        return self._estimator
 
     def stitch_arrays(self, hi1: np.ndarray, lo1: Optional[np.ndarray],
                       hi2: np.ndarray, lo2: Optional[np.ndarray]
@@ -157,6 +189,11 @@ class VideoStitcher:
         both, hi keeps its dtype, so float 0..255 frames take the float
         composite route. Call :meth:`stitch_finish` to collect the
         frames; a caller may begin the next video first.
+
+        With several devices each chunk is staged to the device that
+        runs it; the motions are gathered on the first device, which
+        smooths them, and the composite chunks are dealt as the motion
+        chunks were. The host still waits once (the canvas fetch).
         """
         if self.upload_mode not in ("bulk", "stream"):
             raise ValueError(f"upload_mode {self.upload_mode!r}: 'bulk' or "
@@ -165,7 +202,7 @@ class VideoStitcher:
         window = self.config.window
         if T < window:
             raise ValueError(f"video too short: {T} < window {window}")
-        timer = PhaseTimer(T, self.device if self.sync_phases else None)
+        timer = PhaseTimer(T, self.devices if self.sync_phases else None)
         given = lo1 is not None and lo2 is not None
         staging: List[torch.Tensor] = []
         mh, mw = self.model_h, self.model_w
@@ -175,17 +212,21 @@ class VideoStitcher:
             return self._composite_begin(h1, h2, smooth, timer, T, staging)
         with annotate("upload"):
             # uint8 unless both lo are given; then float frames stay float
-            h1, h2 = (self.upload_frames(h, staging, keep_float=given
-                                         and h.dtype != np.uint8)
+            h1, h2 = (self.upload_parts(h, staging, keep_float=given
+                                        and h.dtype != np.uint8)
                       for h in (hi1, hi2))
             if given:
-                l1 = self.upload(lo1, np.float32, staging)
-                l2 = self.upload(lo2, np.float32, staging)
+                l1 = self.deal(lo1, np.float32, staging)
+                l2 = self.deal(lo2, np.float32, staging)
             else:
-                l1, l2 = model_input(h1, mh, mw), model_input(h2, mh, mw)
+                l1 = [model_input(p, mh, mw) for p in h1]
+                l2 = [model_input(p, mh, mw) for p in h2]
         timer.mark("upload")
-        smooth = self.motion_smooth(l1, l2, timer)
-        return self._composite_begin(h1, h2, smooth, timer, T, staging)
+        smooth = self.motion_smooth(self.chunked(l1, T), self.chunked(l2, T),
+                                    timer)
+        return self._composite_begin(self.chunked(h1, T),
+                                     self.chunked(h2, T), smooth, timer, T,
+                                     staging)
 
     def _composite_begin(self, h1, h2, smooth, timer, T, staging
                          ) -> _PendingStitch:
@@ -197,38 +238,42 @@ class VideoStitcher:
         return _PendingStitch(composite=state, smooth=smooth, timer=timer,
                               T=T, staging=staging)
 
+    def _copy_stream(self, device: torch.device) -> torch.cuda.Stream:
+        if device not in self._copy_streams:
+            self._copy_streams[device] = torch.cuda.Stream(device)
+        return self._copy_streams[device]
+
     def upload_chunks(self, views, staging: List[torch.Tensor]
                       ) -> Iterator[List[torch.Tensor]]:
         """Yield each chunk of the ``views`` (frames [T, ...], BGR or packed
         I420; uint8 stays uint8, any other dtype goes as float32, as the
-        JAX package's stream upload keeps it) on the device, one list per
-        chunk.
+        JAX package's stream upload keeps it) on the device that runs it,
+        one list per chunk.
 
         A chunk is copied only when the caller asks for the next one, so
         its copy starts after the caller has enqueued the previous
         chunk's work, and on a card runs beside those kernels: the chunk
         is staged in page-locked memory (appended to ``staging``), copied
-        on the stitcher's copy stream, and the current stream waits for
-        that copy's event before it reads the chunk (allocated on the copy
-        stream, recorded on the current one).
+        on its device's copy stream, and that device's current stream
+        waits for the copy's event before it reads the chunk (allocated
+        on the copy stream, recorded on the current one).
         """
-        cuda = self.device.type == "cuda"
-        if cuda and self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(self.device)
-        compute = torch.cuda.current_stream(self.device) if cuda else None
-        for s, e in self._motion.chunks(views[0].shape[0]):
+        motion = self._motion
+        for k, (s, e) in enumerate(motion.chunks(views[0].shape[0])):
+            device = self.devices[motion.owner(k)]
             hosts = [pinned(np.ascontiguousarray(
                 v[s:e], np.uint8 if v.dtype == np.uint8 else np.float32),
-                self.device) for v in views]
+                device) for v in views]
             staging.extend(hosts)
-            if not cuda:
+            if device.type != "cuda":
                 yield hosts
                 continue
-            copy = self._copy_stream
-            with torch.cuda.stream(copy):
-                devs = [h.to(self.device, non_blocking=True) for h in hosts]
+            copy_stream = self._copy_stream(device)
+            compute = torch.cuda.current_stream(device)
+            with torch.cuda.stream(copy_stream):
+                devs = [h.to(device, non_blocking=True) for h in hosts]
             landed = torch.cuda.Event()
-            landed.record(copy)
+            landed.record(copy_stream)
             compute.wait_event(landed)
             for d in devs:
                 d.record_stream(compute)
@@ -237,69 +282,112 @@ class VideoStitcher:
     def _stream_motion_smooth(self, hi1, hi2, staging, timer):
         """``upload_mode`` 'stream': chunk by chunk, both views' copies
         (:meth:`upload_chunks`), then the chunk's I420 unpack, model
-        input, spatial motion and temporal features; then the temporal
-        motion from the features, and smoothing as in bulk. Returns
-        (frames1, frames2, the smoothing dict)."""
+        input, spatial motion and temporal features on its device; then
+        the temporal motion from the features, and smoothing as in bulk.
+        Returns (frames1, frames2, the smoothing dict), the frames as
+        chunk lists."""
         mh, mw = self.model_h, self.model_w
+        motion = self._motion
         timer.mark("upload", sync=False)    # the copies run inside 'spatial'
         frames1, frames2, sm1, sm2, f1, f2 = [], [], [], [], [], []
         with annotate("spatial"):
-            for a, b in self.upload_chunks((hi1, hi2), staging):
+            for k, (a, b) in enumerate(self.upload_chunks((hi1, hi2),
+                                                          staging)):
                 a = unpack_i420_u8(a) if a.dim() == 3 else a
                 b = unpack_i420_u8(b) if b.dim() == 3 else b
                 frames1.append(a)
                 frames2.append(b)
                 l1, l2 = model_input(a, mh, mw), model_input(b, mh, mw)
-                m1, m2 = self._motion.spatial_chunk(l1, l2)
+                m1, m2 = motion.spatial_chunk(l1, l2, k)
                 sm1.append(m1)
                 sm2.append(m2)
-                g1, g2 = self._motion.features_chunk(l1, l2)
+                g1, g2 = motion.features_chunk(l1, l2, k)
                 f1.append(g1)
                 f2.append(g2)
         timer.mark("spatial")
         with annotate("temporal"):
-            tmotion = self._motion.temporal_from_features(torch.cat(f1, 0),
-                                                          torch.cat(f2, 0))
+            tmotion = motion.temporal_from_features(f1, f2)
         timer.mark("temporal")
-        smooth = self._smooth(torch.cat(sm1, 0), torch.cat(sm2, 0), *tmotion,
-                              timer)
-        return torch.cat(frames1, 0), torch.cat(frames2, 0), smooth
+        smooth = self._smooth(motion.gather(sm1), motion.gather(sm2),
+                              *tmotion, timer)
+        return frames1, frames2, smooth
 
-    def upload(self, x: np.ndarray, dtype, staging: List[torch.Tensor]
-               ) -> torch.Tensor:
-        """``x`` as ``dtype`` on the device, copied without blocking from a
-        page-locked buffer appended to ``staging`` (hold it until the
-        video is finished)."""
-        host = pinned(np.ascontiguousarray(x, dtype), self.device)
+    def upload(self, x: np.ndarray, dtype, staging: List[torch.Tensor],
+               device: Optional[torch.device] = None) -> torch.Tensor:
+        """``x`` as ``dtype`` on ``device`` (default: the first), copied
+        without blocking from a page-locked buffer appended to ``staging``
+        (hold it until the video is finished)."""
+        device = device or self.device
+        host = pinned(np.ascontiguousarray(x, dtype), device)
         staging.append(host)
-        return host.to(self.device, non_blocking=True)
+        return host.to(device, non_blocking=True)
+
+    def deal(self, x: np.ndarray, dtype, staging: List[torch.Tensor]
+             ) -> List[torch.Tensor]:
+        """Host frames [T, ...] as ``dtype`` on the devices, one tensor per
+        device holding its chunks (k mod N) in order, each staged and
+        copied in one piece (:meth:`upload`); on one device, the whole
+        video. :meth:`chunked` cuts them into the chunks."""
+        motion, n = self._motion, len(self.devices)
+        spans = list(motion.chunks(x.shape[0]))
+        return [self.upload(x if n == 1 else np.concatenate(
+                    [x[s:e] for s, e in spans[j::n]]), dtype, staging, dev)
+                for j, dev in enumerate(self.devices[:len(spans)])]
+
+    def chunked(self, parts: List[torch.Tensor], T: int
+                ) -> List[torch.Tensor]:
+        """The chunk list of a T-frame video dealt by :meth:`deal`: chunk k
+        on the device that runs it."""
+        return self._motion.views(parts, T)
+
+    def upload_parts(self, hi: np.ndarray, staging: List[torch.Tensor],
+                     keep_float: bool = False) -> List[torch.Tensor]:
+        """:meth:`upload_frames` dealt over the devices (:meth:`deal`): BGR
+        frames, one tensor per device."""
+        parts = self.deal(hi, np.float32 if keep_float else np.uint8, staging)
+        return [unpack_i420_u8(p) if p.dim() == 3 else p for p in parts]
 
     def upload_frames(self, hi: np.ndarray, staging: List[torch.Tensor],
                       keep_float: bool = False) -> torch.Tensor:
         """Frames [T, H, W, 3] BGR or packed I420 [T, H*3//2, W] onto the
-        device as BGR [T, H, W, 3]: uint8 (I420 unpacked on the device),
-        or float32 with ``keep_float`` (float 0..255 frames whose model
-        input is given). :func:`model_input` makes the model input from
-        them."""
+        first device as BGR [T, H, W, 3]: uint8 (I420 unpacked on the
+        device), or float32 with ``keep_float`` (float 0..255 frames whose
+        model input is given). :func:`model_input` makes the model input
+        from them."""
         h = self.upload(hi, np.float32 if keep_float else np.uint8, staging)
         return unpack_i420_u8(h) if h.dim() == 3 else h
 
+    def model_inputs(self, x: np.ndarray, staging: List[torch.Tensor]
+                     ) -> List[torch.Tensor]:
+        """Model-size frames as the model input's chunk list, dealt over
+        the devices: float [-1, 1] frames as they are, uint8 BGR or packed
+        I420 unpacked and normalized on the device (:func:`model_input`)."""
+        if x.dtype != np.uint8:
+            parts = self.deal(x, np.float32, staging)
+        else:
+            parts = [model_input(p, self.model_h, self.model_w)
+                     for p in self.upload_parts(x, staging)]
+        return self.chunked(parts, x.shape[0])
+
     @torch.no_grad()
-    def motion_smooth(self, l1: torch.Tensor, l2: torch.Tensor,
+    def motion_smooth(self, l1: Frames, l2: Frames,
                       timer: Optional[PhaseTimer] = None
                       ) -> Dict[str, torch.Tensor]:
         """Spatial and temporal motion, transport and the smoothing of
-        every window for model inputs [T, mh, mw, 3] in [-1, 1] on the
-        device: the dict of :func:`smooth_all_windows` (per-frame smooth
-        and original meshes, per-window paths). Runs at the true T, with
+        every window for model inputs [T, mh, mw, 3] in [-1, 1] (tensors
+        on the first device, or chunk lists): the dict of
+        :func:`smooth_all_windows` (per-frame smooth and original meshes,
+        per-window paths) on the first device. Runs at the true T, with
         no waits; ``timer`` marks the phases ``spatial``, ``temporal`` and
         ``smooth``."""
+        motion = self._motion
+        c1, c2 = motion.split(l1), motion.split(l2)
         with annotate("spatial"):
-            smotion1, smotion2 = self._motion.spatial(l1, l2)
+            smotion1, smotion2 = motion.spatial(c1, c2)
         if timer is not None:
             timer.mark("spatial")
         with annotate("temporal"):
-            tmotion1, tmotion2 = self._motion.temporal_pair(l1, l2)
+            tmotion1, tmotion2 = motion.temporal_pair(c1, c2)
         if timer is not None:
             timer.mark("temporal")
         return self._smooth(smotion1, smotion2, tmotion1, tmotion2, timer)
@@ -357,6 +445,7 @@ def init_stitcher(rng_seed: int = 0, config: Optional[StitchConfig] = None,
                   model_h: int = MODEL_H, model_w: int = MODEL_W,
                   chunk: int = 8, compute_dtype: Optional[torch.dtype] = None,
                   smooth_dtype: Optional[torch.dtype] = None,
+                  n_devices: Optional[int] = None,
                   device="cuda") -> VideoStitcher:
     """A stitcher with random float32 weights drawn from ``rng_seed``.
 
@@ -368,11 +457,17 @@ def init_stitcher(rng_seed: int = 0, config: Optional[StitchConfig] = None,
     quantize to ~2 px). Parameters stay float32 and the geometry runs in
     float32 regardless.
 
+    ``n_devices`` > 1 deals the chunks over that many devices
+    (``parallel/devices.py:resolve_devices``: that many cards from
+    ``device``, or replicas on the CPU with ``device='cpu'``; ``device``
+    may also be a list of devices); the frames equal one device's bit
+    for bit.
+
     The weights are drawn on the CPU from one ``torch.Generator``, so every
     device gets the same values. Raises if ``device`` is 'cuda' and no card
-    is present.
+    is present, or if fewer cards than ``n_devices`` are.
     """
-    device = resolve_device(device)
+    devices = resolve_devices(n_devices, device)
     gen = torch.Generator().manual_seed(rng_seed)
     dt = compute_dtype or torch.bfloat16
     nets = (SpatialNet(model_h, model_w, compute_dtype=dt),
@@ -381,4 +476,5 @@ def init_stitcher(rng_seed: int = 0, config: Optional[StitchConfig] = None,
     for net in nets:
         init_weights(net, gen)
     return VideoStitcher(*nets, config=config or StitchConfig(), chunk=chunk,
-                         model_h=model_h, model_w=model_w, device=device)
+                         model_h=model_h, model_w=model_w, device=devices[0],
+                         devices=devices)

@@ -33,10 +33,10 @@ from stabstitch2_tpu_torch.ops.mesh import (denormalize_mesh, mesh_points,
 from stabstitch2_tpu_torch.ops.tps import (tps_params, tps_transform_points,
                                            tps_warp_with_mask)
 from stabstitch2_tpu_torch.pipeline.compositor import (PendingComposite,
+                                                       chunk_frames,
                                                        clip_and_convert,
                                                        composite_finish,
                                                        enqueue_chunks,
-                                                       frames_to_device,
                                                        fused_route,
                                                        plan_canvas,
                                                        scale_meshes)
@@ -44,10 +44,10 @@ from stabstitch2_tpu_torch.pipeline.stitcher import model_input
 from stabstitch2_tpu_torch.utils.transfer import constant
 
 
-def pair_smooth_meshes(stitcher, lo_a: torch.Tensor, lo_b: torch.Tensor
+def pair_smooth_meshes(stitcher, lo_a, lo_b
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The two-view pipeline's smooth meshes (model resolution) of one
-    adjacent pair, from its model inputs."""
+    adjacent pair, from its model inputs (tensors or chunk lists)."""
     smooth = stitcher.motion_smooth(lo_a, lo_b)
     return smooth["smooth_mesh1"], smooth["smooth_mesh2"]
 
@@ -148,22 +148,30 @@ def composite_chain_begin(images, meshes: List[torch.Tensor],
     """Enqueue the whole N-view composite; return its pending state.
 
     images: V frame stacks [T, H, W, 3] uint8, tensors on the meshes'
-    device or host arrays (uploaded per chunk); meshes: V frame-resolution
-    meshes [T, GH+1, GW+1, 2]. The canvas spans every view's meshes (the
-    one wait); for yuv420 the frames are cropped to even sizes while the
-    spline keeps the true extent.
+    device or host arrays (uploaded per chunk), or V chunk lists (chunk k
+    of ``chunk`` frames on the device that runs it, as a stitcher on
+    several devices deals them); meshes: V frame-resolution meshes [T,
+    GH+1, GW+1, 2]. The canvas spans every view's meshes (the one wait);
+    for yuv420 the frames are cropped to even sizes while the spline
+    keeps the true extent.
     """
     fused = fused_route(config)
     device = meshes[0].device
-    T = images[0].shape[0]
+    T = meshes[0].shape[0]
     stacked = torch.cat(meshes, 0)
     canvas, grid_span = plan_canvas(stacked, stacked, config)
-    offset = constant([canvas.x_min, canvas.y_min], torch.float32, device)
+    offsets = {}
     mesh_all = torch.stack(meshes)
 
-    def run(s, e, out_format):
-        iv = torch.stack([frames_to_device(im[s:e], device) for im in images])
-        return composite_chain_chunk(iv, mesh_all[:, s:e], offset,
+    def run(k, s, e, out_format):
+        iv = torch.stack([chunk_frames(im, k, s, e, device) for im in images])
+        dev = iv.device
+        if dev not in offsets:
+            offsets[dev] = constant([canvas.x_min, canvas.y_min],
+                                    torch.float32, dev)
+        return composite_chain_chunk(iv, mesh_all[:, s:e].to(
+                                         dev, non_blocking=True),
+                                     offsets[dev],
                                      (canvas.pad_h, canvas.pad_w),
                                      config.warp_mode, config.fusion_mode,
                                      grid_span, out_format=out_format,
@@ -200,19 +208,24 @@ def stitch_multi_begin(stitcher, his: List[np.ndarray]) -> _PendingMulti:
 
     his: V host arrays, uint8 BGR [T, H, W, 3] or packed I420
     [T, H*3//2, W], cut to the shortest view's T. Each view crosses to
-    the card once; its model input is made there. Waits for the card at
-    each junction's extent and for the canvas.
+    the card once (to each of the stitcher's devices, its chunks); its
+    model input is made there. Every pair's motion chunks and every
+    composite chunk run on the device that holds their frames. Waits for
+    the card at each junction's extent and for the canvas.
     """
     mh, mw = stitcher.model_h, stitcher.model_w
     T = min(h.shape[0] for h in his)
     staging: List[torch.Tensor] = []
-    dev = [stitcher.upload_frames(h[:T], staging) for h in his]
-    los = [model_input(d, mh, mw) for d in dev]
+    parts = [stitcher.upload_parts(h[:T], staging) for h in his]
+    frames = [stitcher.chunked(p, T) for p in parts]
+    los = [stitcher.chunked([model_input(x, mh, mw) for x in p], T)
+           for p in parts]
     pair_meshes = [pair_smooth_meshes(stitcher, los[j], los[j + 1])
-                   for j in range(len(dev) - 1)]
-    H, W = int(dev[0].shape[1]), int(dev[0].shape[2])
+                   for j in range(len(his) - 1)]
+    H, W = int(frames[0][0].shape[1]), int(frames[0][0].shape[2])
     meshes = chain_meshes(pair_meshes, H, W, mh, mw)
-    return _PendingMulti(composite_chain_begin(dev, meshes, stitcher.config,
+    return _PendingMulti(composite_chain_begin(frames, meshes,
+                                               stitcher.config,
                                                chunk=stitcher.chunk), staging)
 
 

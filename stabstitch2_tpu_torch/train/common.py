@@ -9,6 +9,14 @@ then the learning rate ``lr * 0.97 ** (step // steps_per_epoch)``, set
 from the step count before every update so that a resumed run continues
 the staircase.
 
+In a data-parallel run (``parallel/train.py``) the optimizer carries the
+process group: each step first averages the gradients over the ranks, in
+one all-reduce of them all, so the clip sees the global batch's norm and
+every rank takes the same update; the loss terms the steps return are
+averaged likewise. Every loss term is a mean over equal shards of the
+batch (the brightness-balanced term a mean of per-sample ratios), so the
+ranks' average is the global batch's.
+
 The augmentation is split in two so that a test can feed the JAX
 package's draws to the port: :func:`draw_aug` draws the factors from a
 ``torch.Generator``, :func:`apply_aug` applies them.
@@ -30,9 +38,10 @@ class Optimizer:
     """Global-norm clipping, Adam and the staircase learning rate."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], cfg: TrainConfig,
-                 steps_per_epoch: int):
+                 steps_per_epoch: int, group=None):
         self.params = [p for p in params if p.requires_grad]
         self.cfg = cfg
+        self.group = group      # a data-parallel run's process group
         self.steps_per_epoch = max(int(steps_per_epoch), 1)
         self.adam = torch.optim.Adam(self.params, lr=cfg.learning_rate,
                                      betas=(cfg.b1, cfg.b2), eps=cfg.eps)
@@ -58,9 +67,46 @@ class Optimizer:
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
 
+    @torch.no_grad()
+    def average_grads(self) -> None:
+        """Average the gradients over the process group's ranks, in one
+        all-reduce (nothing without a group)."""
+        if self.group is None:
+            return
+        import torch.distributed as dist
+
+        grads = [p.grad for p in self.params if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.group)
+        flat /= dist.get_world_size(self.group)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
+
+    @torch.no_grad()
+    def mean(self, metrics: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+        """Detached loss terms, averaged over the process group's ranks
+        (as they are without a group)."""
+        out = {k: v.detach() for k, v in metrics.items()}
+        if self.group is None:
+            return out
+        import torch.distributed as dist
+
+        flat = torch.stack(list(out.values()))
+        dist.all_reduce(flat, group=self.group)
+        flat /= dist.get_world_size(self.group)
+        return dict(zip(out, flat.unbind()))
+
     def step(self) -> torch.Tensor:
-        """Clip, then one Adam update at this step's rate. Returns the
+        """Average the gradients over the ranks (:meth:`average_grads`),
+        clip, then one Adam update at this step's rate. Returns the
         gradients' global norm before clipping."""
+        self.average_grads()
+        return self.update()
+
+    def update(self) -> torch.Tensor:
+        """Clip, then one Adam update at this step's rate (the gradients
+        already averaged). Returns their global norm before clipping."""
         norm = self.clip()
         for group in self.adam.param_groups:
             group["lr"] = self.lr(self.step_count)
@@ -77,9 +123,10 @@ class Optimizer:
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], cfg: TrainConfig,
-                   steps_per_epoch: int) -> Optimizer:
-    """clip(3) -> Adam with the staircase decay per epoch."""
-    return Optimizer(params, cfg, steps_per_epoch)
+                   steps_per_epoch: int, group=None) -> Optimizer:
+    """clip(3) -> Adam with the staircase decay per epoch; gradients
+    averaged over ``group``'s ranks first, where one is given."""
+    return Optimizer(params, cfg, steps_per_epoch, group)
 
 
 def normalize_images(img: torch.Tensor) -> torch.Tensor:

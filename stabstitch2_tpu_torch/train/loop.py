@@ -18,6 +18,19 @@ mode (spatial: ``output_H_ref``, ``output_H_tgt``, ``output_tps_ref``,
 ``output_tps_tgt``; temporal: ``img_t0``, ``img_t1``, ``warp_mesh``;
 smooth: none). ``on_step(step, metrics)``, when given, is called after
 every step (the metrics are tensors on the device, not waited on).
+
+``n_devices`` > 1 runs the loop data-parallel (``parallel/train.py``): N
+processes, rank r on device r (``parallel/devices.py:resolve_devices``;
+N ranks on the CPU with ``device='cpu'``, or an explicit device list),
+each on its rows of every batch of ``batch_size`` rows (which N must
+divide), with BatchNorm over the global batch and the gradients averaged
+before the clip: the step of one process on the whole batch. Every rank
+draws the same batches and augmentation factors and restores the same
+checkpoint; rank 0 alone writes checkpoints, ``best_ssim.json``,
+summaries and panels and scores the test set, while the others wait at
+a barrier after each epoch. The returned ``TrainRun`` holds rank 0's net
+and optimizer on the first device; ``on_step`` is called after the ranks
+are done, once per step, with rank 0's loss terms (the ranks' average).
 """
 
 from __future__ import annotations
@@ -26,7 +39,7 @@ import dataclasses
 import json
 import os
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -40,7 +53,10 @@ from stabstitch2_tpu_torch.data.datasets import (SmoothWindowDataset,
                                                  TemporalPairDataset,
                                                  batch_iterator)
 from stabstitch2_tpu_torch.models import SmoothNet, SpatialNet, TemporalNet
-from stabstitch2_tpu_torch.models.backbone import init_weights
+from stabstitch2_tpu_torch.models.backbone import (init_weights,
+                                                   set_process_group)
+from stabstitch2_tpu_torch.parallel.devices import resolve_devices
+from stabstitch2_tpu_torch.parallel.train import Rank
 from stabstitch2_tpu_torch.train.common import Optimizer, draw_aug, make_optimizer
 from stabstitch2_tpu_torch.utils.checkpoint import TrainCheckpointer
 
@@ -56,34 +72,56 @@ SPATIAL_PANELS = ("output_H_ref", "output_H_tgt", "output_tps_ref",
 class TrainRun:
     """What a loop leaves: the trained net (train mode), its optimizer
     (whose ``step_count`` is the global step) and the last step's loss
-    terms."""
+    terms; of a data-parallel run also the checkpoint paths each rank
+    wrote."""
 
     net: nn.Module
     opt: Optimizer
     metrics: Dict[str, torch.Tensor]
     checkpointer: TrainCheckpointer
+    saved_by_rank: Optional[List[List[str]]] = None
+
+
+def _data_parallel(fn: Callable, kwargs: Dict, devices: List[torch.device],
+                   on_step: OnStep, net: nn.Module, cfg) -> TrainRun:
+    """``fn(**kwargs)`` as a data-parallel run over ``devices``
+    (``parallel/train.py:run_training``), its ``TrainRun`` rebuilt from
+    rank 0's weights into ``net``."""
+    from stabstitch2_tpu_torch.parallel.train import run_training
+
+    Rank(0, len(devices), devices[0]).rows(cfg.batch_size)  # before spawning
+    ranks = run_training(fn, kwargs, devices, run_dir=kwargs["model_dir"])
+    lead = ranks[0]
+    net.load_state_dict(lead["model"], strict=True)
+    net.to(devices[0]).train()
+    opt = make_optimizer(net.parameters(), cfg, lead["steps_per_epoch"])
+    opt.load_state_dict(lead["optimizer"])
+    if on_step is not None:
+        for step, metrics in lead["steps"]:
+            on_step(step, {k: torch.tensor(v) for k, v in metrics.items()})
+    return TrainRun(net, opt,
+                    {k: torch.tensor(v) for k, v in lead["metrics"].items()},
+                    TrainCheckpointer(kwargs["model_dir"]),
+                    saved_by_rank=[r["saved"] for r in ranks])
 
 
 def _setup(net: nn.Module, cfg, n_samples: int, model_dir: str,
-           max_steps_per_epoch: Optional[int], n_devices: Optional[int],
-           seed: int, device, what: str):
-    """Device, random weights, optimizer, checkpointer and the resume:
-    returns (net, opt, ckpt, steps_per_epoch, start_epoch, restored)."""
-    from stabstitch2_tpu_torch.pipeline.stitcher import resolve_device
-
-    if n_devices is not None and n_devices > 1:
-        raise NotImplementedError(
-            "n_devices > 1: multi-GPU training (torch.distributed) is not "
-            "ported yet (ROADMAP.md item 9)")
+           max_steps_per_epoch: Optional[int], rank: Rank, seed: int,
+           what: str):
+    """Device, random weights, the global BatchNorm of a data-parallel
+    run, optimizer, checkpointer and the resume: returns (net, opt, ckpt,
+    steps_per_epoch, start_epoch, restored)."""
     if n_samples < cfg.batch_size:
         raise ValueError(f"dataset too small: {n_samples} {what} < batch "
                          f"size {cfg.batch_size}")
-    device = resolve_device(device)
+    rank.rows(cfg.batch_size)       # raises unless the ranks divide it
+    device = rank.device
     init_weights(net, torch.Generator().manual_seed(seed))
     net.to(device).train()
+    set_process_group(net, rank.group)
     steps_per_epoch = min(n_samples // cfg.batch_size,
                           max_steps_per_epoch or 10 ** 9)
-    opt = make_optimizer(net.parameters(), cfg, steps_per_epoch)
+    opt = make_optimizer(net.parameters(), cfg, steps_per_epoch, rank.group)
     ckpt = TrainCheckpointer(model_dir)
     restored = ckpt.restore(map_location=device)
     start_epoch = 0
@@ -140,12 +178,14 @@ def _to(device, *arrays):
 
 
 def _epochs(name, dataset, cfg, net, opt, steps_per_epoch, start_epoch,
-            seed, writer, on_step, step_fn, after_epoch,
+            seed, writer, on_step, step_fn, after_epoch, rank: Rank,
             panels: Panels = None):
-    """The shared epoch loop: ``step_fn(batch) -> metrics`` per step,
-    ``panels`` written at every PANEL_EVERY-th step, ``after_epoch(epoch)``
-    after each epoch."""
-    device = next(net.parameters()).device
+    """The shared epoch loop: ``step_fn(rows) -> metrics`` per step on this
+    rank's rows of the batch, ``panels`` written at every PANEL_EVERY-th
+    step (where there is a writer), ``after_epoch(epoch)`` after each
+    epoch on rank 0, then a barrier."""
+    device = rank.device
+    rows = rank.rows(cfg.batch_size)
     metrics: Dict[str, torch.Tensor] = {}
     for epoch in range(start_epoch, cfg.max_epoch):
         t0 = time.perf_counter()
@@ -154,7 +194,7 @@ def _epochs(name, dataset, cfg, net, opt, steps_per_epoch, start_epoch,
             for bi, batch in enumerate(it):
                 if bi >= steps_per_epoch:
                     break
-                metrics = step_fn(_to(device, *batch))
+                metrics = step_fn(_to(device, *(x[rows] for x in batch)))
                 if bi % 100 == 0:
                     _log(writer, metrics, opt.step_count)
                 if (writer is not None and panels is not None
@@ -164,10 +204,13 @@ def _epochs(name, dataset, cfg, net, opt, steps_per_epoch, start_epoch,
                     on_step(opt.step_count, metrics)
         finally:
             it.close()
-        loss = float(metrics["total"]) if metrics else float("nan")
-        print(f"[{name}] epoch {epoch + 1}/{cfg.max_epoch} loss={loss:.4f} "
-              f"({time.perf_counter() - t0:.1f}s)", flush=True)
-        after_epoch(epoch)
+        if rank.rank == 0:
+            loss = float(metrics["total"]) if metrics else float("nan")
+            print(f"[{name}] epoch {epoch + 1}/{cfg.max_epoch} "
+                  f"loss={loss:.4f} ({time.perf_counter() - t0:.1f}s)",
+                  flush=True)
+            after_epoch(epoch)
+        rank.barrier()
     return metrics
 
 
@@ -179,12 +222,20 @@ def train_spatial(train_path: str, test_path: Optional[str] = None,
                   seed: int = 0, max_steps_per_epoch: Optional[int] = None,
                   model_h: int = 360, model_w: int = 480,
                   n_devices: Optional[int] = None, device="cuda",
-                  on_step: OnStep = None) -> TrainRun:
+                  on_step: OnStep = None,
+                  rank: Optional[Rank] = None) -> TrainRun:
+    """The spatial trainer (module docstring); ``rank`` is set on the
+    ranks of a data-parallel run (``parallel/train.py``)."""
     from stabstitch2_tpu_torch.metrics.psnr_ssim import ssim
     from stabstitch2_tpu_torch.train.spatial import (frozen_vgg,
                                                      spatial_train_outputs,
                                                      spatial_train_step)
 
+    kwargs = dict(train_path=train_path, test_path=test_path, cfg=cfg,
+                  model_dir=model_dir, summary_dir=summary_dir,
+                  vgg_state_dict=vgg_state_dict, seed=seed,
+                  max_steps_per_epoch=max_steps_per_epoch, model_h=model_h,
+                  model_w=model_w)
     cfg = cfg or SpatialTrainConfig()
     if cfg.perception_weight > 0 and vgg_state_dict is None:
         # the tra recipe needs the perceptual term; training without it
@@ -193,15 +244,21 @@ def train_spatial(train_path: str, test_path: Optional[str] = None,
             "the config has perception_weight > 0 (tra recipe) but no VGG-19 "
             "weights were given: pass a torchvision vgg19 state_dict "
             "(cli train --vgg_pth), or set perception_weight=0 (ssd)")
+    if rank is None:
+        devices = resolve_devices(n_devices, device)
+        if len(devices) > 1:
+            return _data_parallel(train_spatial, kwargs, devices, on_step,
+                                  SpatialNet(model_h, model_w), cfg)
+        rank = Rank(0, 1, devices[0])
     dataset = SpatialPairDataset(train_path, training=True, seed=seed,
                                  model_size=(model_h, model_w))
     net, opt, ckpt, spe, start, restored = _setup(
         SpatialNet(model_h, model_w), cfg, len(dataset), model_dir,
-        max_steps_per_epoch, n_devices, seed, device, "samples")
-    dev = next(net.parameters()).device
+        max_steps_per_epoch, rank, seed, "samples")
+    dev = rank.device
     vgg = (frozen_vgg(vgg_state_dict, dev) if cfg.perception_weight > 0
            else None)
-    writer = _writer(summary_dir)
+    writer = _writer(summary_dir if rank.rank == 0 else None)
     aug = torch.Generator().manual_seed(seed)
     best_file = os.path.join(model_dir, "best_ssim.json")
     best = {"ssim": -1.0}
@@ -249,7 +306,7 @@ def train_spatial(train_path: str, test_path: Optional[str] = None,
                 json.dump({"best_ssim": cur, "step": opt.step_count}, f)
 
     metrics = _epochs("spatial", dataset, cfg, net, opt, spe, start, seed,
-                      writer, on_step, step_fn, after_epoch, panels)
+                      writer, on_step, step_fn, after_epoch, rank, panels)
     return TrainRun(net, opt, metrics, ckpt)
 
 
@@ -259,17 +316,30 @@ def train_temporal(train_path: str, cfg: Optional[TemporalTrainConfig] = None,
                    max_steps_per_epoch: Optional[int] = None,
                    model_h: int = 360, model_w: int = 480,
                    n_devices: Optional[int] = None, device="cuda",
-                   on_step: OnStep = None) -> TrainRun:
+                   on_step: OnStep = None,
+                   rank: Optional[Rank] = None) -> TrainRun:
+    """The temporal trainer (module docstring); ``rank`` is set on the
+    ranks of a data-parallel run (``parallel/train.py``)."""
     from stabstitch2_tpu_torch.train.temporal import (temporal_train_outputs,
                                                       temporal_train_step)
 
+    kwargs = dict(train_path=train_path, cfg=cfg, model_dir=model_dir,
+                  summary_dir=summary_dir, seed=seed,
+                  max_steps_per_epoch=max_steps_per_epoch, model_h=model_h,
+                  model_w=model_w)
     cfg = cfg or TemporalTrainConfig()
+    if rank is None:
+        devices = resolve_devices(n_devices, device)
+        if len(devices) > 1:
+            return _data_parallel(train_temporal, kwargs, devices, on_step,
+                                  TemporalNet(model_h, model_w), cfg)
+        rank = Rank(0, 1, devices[0])
     dataset = TemporalPairDataset(train_path, cfg.train_frame_num, seed=seed,
                                   model_size=(model_h, model_w))
     net, opt, ckpt, spe, start, _ = _setup(
         TemporalNet(model_h, model_w), cfg, len(dataset), model_dir,
-        max_steps_per_epoch, n_devices, seed, device, "samples")
-    writer = _writer(summary_dir)
+        max_steps_per_epoch, rank, seed, "samples")
+    writer = _writer(summary_dir if rank.rank == 0 else None)
     aug = torch.Generator().manual_seed(seed)
 
     def step_fn(batch):
@@ -288,7 +358,7 @@ def train_temporal(train_path: str, cfg: Optional[TemporalTrainConfig] = None,
             _save(ckpt, net, opt, epoch + 1)
 
     metrics = _epochs("temporal", dataset, cfg, net, opt, spe, start, seed,
-                      writer, on_step, step_fn, after_epoch, panels)
+                      writer, on_step, step_fn, after_epoch, rank, panels)
     return TrainRun(net, opt, metrics, ckpt)
 
 
@@ -298,19 +368,31 @@ def train_smooth(train_path: str, cfg: Optional[SmoothTrainConfig] = None,
                  max_steps_per_epoch: Optional[int] = None,
                  model_h: int = 360, model_w: int = 480,
                  n_devices: Optional[int] = None, device="cuda",
-                 on_step: OnStep = None) -> TrainRun:
+                 on_step: OnStep = None,
+                 rank: Optional[Rank] = None) -> TrainRun:
+    """The smooth trainer (module docstring); ``rank`` is set on the ranks
+    of a data-parallel run (``parallel/train.py``)."""
     from stabstitch2_tpu_torch.train.smooth import smooth_train_step
 
+    kwargs = dict(train_path=train_path, cfg=cfg, model_dir=model_dir,
+                  summary_dir=summary_dir, seed=seed,
+                  max_steps_per_epoch=max_steps_per_epoch, model_h=model_h,
+                  model_w=model_w)
     cfg = cfg or SmoothTrainConfig()
+    if rank is None:
+        devices = resolve_devices(n_devices, device)
+        if len(devices) > 1:
+            return _data_parallel(train_smooth, kwargs, devices, on_step,
+                                  SmoothNet(), cfg)
+        rank = Rank(0, 1, devices[0])
     dataset = SmoothWindowDataset(
         train_path, selected_frames=cfg.frame_num + cfg.train_sqe - 1,
         train_frame_num=cfg.train_frame_num, seed=seed,
         model_size=(model_h, model_w))
     net, opt, ckpt, spe, start, _ = _setup(
         SmoothNet(), cfg, len(dataset), model_dir, max_steps_per_epoch,
-        n_devices, seed, device,
-        "windows (did export-motions run?)")
-    writer = _writer(summary_dir)
+        rank, seed, "windows (did export-motions run?)")
+    writer = _writer(summary_dir if rank.rank == 0 else None)
 
     def step_fn(batch):
         return smooth_train_step(net, opt, batch, cfg)
@@ -320,5 +402,5 @@ def train_smooth(train_path: str, cfg: Optional[SmoothTrainConfig] = None,
             _save(ckpt, net, opt, epoch + 1)
 
     metrics = _epochs("smooth", dataset, cfg, net, opt, spe, start, seed,
-                      writer, on_step, step_fn, after_epoch)
+                      writer, on_step, step_fn, after_epoch, rank)
     return TrainRun(net, opt, metrics, ckpt)

@@ -155,10 +155,11 @@ def smooth_loss_fn(net: SmoothNet, batch: Sequence[torch.Tensor],
 def smooth_train_step(net: SmoothNet, opt: Optimizer,
                       batch: Sequence[torch.Tensor], cfg: SmoothTrainConfig
                       ) -> Dict[str, torch.Tensor]:
-    """One optimizer step; the loss terms, detached."""
+    """One optimizer step; the loss terms, detached (averaged over the
+    ranks of a data-parallel run)."""
     net.train()
     opt.zero_grad()
     total, metrics = smooth_loss_fn(net, batch, cfg)
     total.backward()
     opt.step()
-    return {k: v.detach() for k, v in metrics.items()}
+    return opt.mean(metrics)

@@ -104,13 +104,14 @@ def spatial_train_step(net: SpatialNet, opt: Optimizer, img1, img2,
                        vgg: Optional[VGG19Features] = None
                        ) -> Dict[str, torch.Tensor]:
     """One optimizer step in train mode (BatchNorm statistics move).
-    Returns the loss terms, detached, on the device."""
+    Returns the loss terms, detached, on the device (averaged over the
+    ranks of a data-parallel run)."""
     net.train()
     opt.zero_grad()
     total, metrics = spatial_loss_fn(net, img1, img2, factors, cfg, vgg)
     total.backward()
     opt.step()
-    return {k: v.detach() for k, v in metrics.items()}
+    return opt.mean(metrics)
 
 
 def frozen_vgg(state_dict, device) -> VGG19Features:

@@ -60,10 +60,11 @@ def temporal_loss_fn(net: TemporalNet, img_prev, img_next,
 def temporal_train_step(net: TemporalNet, opt: Optimizer, img_prev, img_next,
                         factors: Optional[AugFactors],
                         cfg: TemporalTrainConfig) -> Dict[str, torch.Tensor]:
-    """One optimizer step in train mode; the loss terms, detached."""
+    """One optimizer step in train mode; the loss terms, detached
+    (averaged over the ranks of a data-parallel run)."""
     net.train()
     opt.zero_grad()
     total, metrics = temporal_loss_fn(net, img_prev, img_next, factors, cfg)
     total.backward()
     opt.step()
-    return {k: v.detach() for k, v in metrics.items()}
+    return opt.mean(metrics)

@@ -39,6 +39,7 @@ class TrainCheckpointer:
     def __init__(self, directory: str, max_to_keep: int = 3):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.saved = []         # the paths this checkpointer wrote
         os.makedirs(self.directory, exist_ok=True)
 
     def steps(self):
@@ -65,6 +66,7 @@ class TrainCheckpointer:
         tmp = path + ".tmp"
         torch.save(payload, tmp)
         os.replace(tmp, path)
+        self.saved.append(path)
         for old in self.steps()[:-self.max_to_keep]:
             os.remove(self.path(old))
         return path
@@ -94,10 +96,11 @@ def stitcher_from_checkpoint(reference_pth_dir: Optional[str] = None,
     """``init_stitcher(**init_kwargs)`` with ``upload_mode`` ('bulk' or
     'stream', ``VideoStitcher.upload_mode``), then the reference triad from
     ``reference_pth_dir`` loaded into its models (strictly: every key must
-    match). Without a directory the random weights stay. ``files`` names
-    the ones to load, a part of :data:`TRIAD` (``export-motions`` needs
-    only the spatial and temporal nets); the other nets keep the random
-    weights.
+    match); with ``n_devices`` in ``init_kwargs``, every device's replica
+    holds the loaded weights. Without a directory the random weights stay.
+    ``files`` names the ones to load, a part of :data:`TRIAD`
+    (``export-motions`` needs only the spatial and temporal nets); the
+    other nets keep the random weights.
 
     Raises FileNotFoundError naming the missing files before the models
     are built.

@@ -21,21 +21,25 @@ import torch
 class PhaseTimer:
     """Cumulative per-phase fps and per-phase ms, reference-style.
 
-    ``sync``: the device to synchronize at each :meth:`mark` that asks for
-    it, or None to never synchronize (the marks then time the enqueue).
+    ``sync``: the device (or devices) to synchronize at each :meth:`mark`
+    that asks for it, or None to never synchronize (the marks then time
+    the enqueue).
     """
 
-    def __init__(self, num_frames: int, sync: Optional[torch.device] = None):
+    def __init__(self, num_frames: int, sync=None):
         self.num_frames = num_frames
-        self.sync = sync
+        devices = sync if isinstance(sync, (list, tuple)) else [sync]
+        self.sync = [d for d in dict.fromkeys(devices)
+                     if d is not None and d.type == "cuda"]
         self.t0 = time.perf_counter()
         self.fps: Dict[str, float] = {}
         self.ms: Dict[str, float] = {}
         self._last = self.t0
 
     def mark(self, phase: str, sync: bool = True) -> None:
-        if sync and self.sync is not None and self.sync.type == "cuda":
-            torch.cuda.synchronize(self.sync)
+        if sync:
+            for device in self.sync:
+                torch.cuda.synchronize(device)
         now = time.perf_counter()
         self.fps[phase] = self.num_frames / max(now - self.t0, 1e-9)
         self.ms[phase] = (now - self._last) * 1e3

@@ -2,12 +2,13 @@
 
 Argument lists written for the JAX CLI (defaults left out, then with
 ``--trace_dir``) parse with both parsers; the keys both define must hold
-the same values. The JAX CLI keeps the transfer formats None and resolves
+the same values, ``--n_devices`` among them (the four stitcher commands
+and ``train``). The JAX CLI keeps the transfer formats None and resolves
 them per command when it runs (``stabstitch2_tpu/cli.py:_build_stitcher``,
 ``cmd_metric``); the port's parser holds the resolved values, so JAX's
 None is read as its resolution. Flags left out of the port by design
-(``--ckpt_dir``, ``--fused_motion``, ``--eager_motion``, ``--n_devices``
-on the stitcher commands, ``convert``) are not shared keys.
+(``--ckpt_dir``, ``--fused_motion``, ``--eager_motion``, ``convert``) are
+not shared keys.
 """
 
 import pytest
@@ -19,7 +20,8 @@ from stabstitch2_tpu_torch import cli
 RESOLVED = {"stitch": ("yuv420", "i420"), "stitch-multi": ("yuv420", "i420"),
             "metric": ("bgr", "bgr"), "export-motions": ("bgr", "bgr")}
 HANDLERS = {"stitch": "cmd_stitch", "stitch-multi": "cmd_stitch_multi",
-            "metric": "cmd_metric", "export-motions": "cmd_export"}
+            "metric": "cmd_metric", "export-motions": "cmd_export",
+            "train": "cmd_train"}
 ARGV = {
     "stitch": ["stitch", "--test_path", "data"],
     "stitch-multi": ["stitch-multi", "--video_dir", "clip"],
@@ -28,7 +30,8 @@ ARGV = {
 }
 FLAGS = ["--preset", "tra", "--warp_mode", "FAST", "--chunk", "4",
          "--download_format", "bgr", "--upload_format", "bgr",
-         "--no_phase_sync", "--reference_pth_dir", "triad"]
+         "--no_phase_sync", "--reference_pth_dir", "triad",
+         "--n_devices", "2"]
 
 
 def jax_args(argv, monkeypatch):
@@ -42,9 +45,10 @@ def jax_args(argv, monkeypatch):
 
 def shared(j, t, cmd):
     j = dict(j)
-    down, up = RESOLVED[cmd]
-    j["download_format"] = j["download_format"] or down
-    j["upload_format"] = j["upload_format"] or up
+    if cmd in RESOLVED:
+        down, up = RESOLVED[cmd]
+        j["download_format"] = j["download_format"] or down
+        j["upload_format"] = j["upload_format"] or up
     keys = (set(j) & set(t)) - {"fn"}
     return {k: j[k] for k in keys}, {k: t[k] for k in keys}
 
@@ -57,6 +61,16 @@ def test_jax_argv_parses_the_same(cmd, extra, monkeypatch):
                   vars(cli.make_parser().parse_args(argv)), cmd)
     assert j == t and "trace_dir" in j
     assert t["trace_dir"] == ("traces" if "--trace_dir" in extra else None)
+
+
+@pytest.mark.parametrize("extra", [[], ["--n_devices", "2"]])
+def test_jax_train_argv_parses_the_same(extra, monkeypatch):
+    argv = ["train", "temporal", "--train_path", "data", "--model_dir", "m",
+            "--max_epoch", "3"] + extra
+    j, t = shared(jax_args(argv, monkeypatch),
+                  vars(cli.make_parser().parse_args(argv)), "train")
+    assert j == t and "n_devices" in j
+    assert t["n_devices"] == (2 if extra else None)
 
 
 def test_output_defaults():

@@ -12,7 +12,9 @@ operations in the same order (and K2 and K3 evaluate the spline through
 the same device routine, so K3 + K4 give K2's planes exactly). K3's
 ``TpsCoords`` gradients equal autograd through its plain version exactly;
 a spatial training step on the card is held against the CPU at 1e-4
-(loss) and 1e-2 (each gradient, relative L2).
+(loss) and 1e-2 (each gradient, relative L2). Two replicas of the
+stitcher on one card equal one bit for bit; each kernel's wrapper runs
+on the last card where there are two or more (skipped on one).
 """
 
 import numpy as np
@@ -549,3 +551,65 @@ def test_spatial_train_step_card_vs_cpu(cuda_device):
     gaps = {k: float((g_card[k] - g_cpu[k]).norm() / g_cpu[k].norm())
             for k in g_cpu}
     assert max(gaps.values()) <= 1e-2, gaps
+
+
+@pytest.mark.parametrize("mode", ["bulk", "stream"])
+def test_two_replicas_on_one_card_equal_one(cuda_device, mode):
+    """A stitcher dealt over two replicas on the one card (the multi-device
+    path: chunk k on replica k mod 2, the halo, the gathers, the per-device
+    composite events) gives one replica's frames and meshes bit for bit,
+    at the defaults (bf16, I420 up, yuv420 down) with a tail chunk."""
+    from stabstitch2_tpu_torch.data.video_io import bgr_to_i420
+    from synthetic import make_two_view_clip
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    v1, v2 = (bgr_to_i420(x) for x in make_two_view_clip(
+        num_frames=10, height=128, width=160, overlap=0.6, shake_px=2.0,
+        seed=5))
+    sts = [init_stitcher(0, StitchConfig(download_format="yuv420"),
+                         model_h=128, model_w=160, chunk=4, device=d)
+           for d in (card, [card, card])]
+    res = []
+    for st in sts:
+        st.upload_mode = mode
+        res.append(st.stitch_arrays(v1, None, v2, None))
+    assert len(sts[1]._motion.replicas) == 2
+    np.testing.assert_array_equal(res[1].frames, res[0].frames)
+    for k in ("smooth_mesh1", "smooth_mesh2"):
+        torch.testing.assert_close(getattr(res[1], k), getattr(res[0], k),
+                                   atol=0, rtol=0)
+
+
+def test_kernels_on_the_last_card(cuda_device):
+    """Each kernel's wrapper with its inputs on the last card launches
+    there and equals its plain version (K1 within 1e-5, K2-K4 exact): the
+    wrappers enter the inputs' device. Needs two or more cards."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip(f"needs two or more CUDA devices ({count} visible): on "
+                    "one card the inputs' device is the current one")
+    last = torch.device("cuda", count - 1)
+    x1, x2 = _cv_inputs((2, 12, 16, 128), last)
+    got = corr_cuda.cost_volume_cuda(x1, x2, 3)
+    assert got.device == last
+    torch.testing.assert_close(got, corr_cuda.cost_volume_plain(x1, x2, 3),
+                               atol=1e-5, rtol=1e-5)
+    out_size, span = (97, 131), (90, 120)
+    im, T, norm = _warp_case(last, span=span)
+    want = fused_warp_cuda.fused_warp_planes_plain(im, T, norm, out_size,
+                                                   grid_span=span)
+    got = fused_warp_cuda.fused_warp_planes(im, T, norm, out_size,
+                                            grid_span=span)
+    for g, r in zip(got[:4], want[:4]):
+        assert g.device == last
+        torch.testing.assert_close(g, r, atol=0, rtol=0)
+    x, y = tps_coords_cuda.tps_coords(T, norm, out_size, grid_span=span)
+    xr, yr = tps_coords_cuda.tps_coords_plain(T, norm, out_size,
+                                              grid_span=span)
+    assert x.device == last
+    torch.testing.assert_close(x, xr, atol=0, rtol=0)
+    torch.testing.assert_close(y, yr, atol=0, rtol=0)
+    got = patch_gather_cuda.bilinear_sample_patch_u8_cuda(im, x, y, out_size)
+    ref = patch_gather_cuda.patch_gather_plain(im, x, y, out_size, False)
+    assert got[0].device == last
+    torch.testing.assert_close(got[0], ref[0], atol=0, rtol=0)

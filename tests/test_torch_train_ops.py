@@ -537,9 +537,10 @@ def test_loop_refuses_multi_device_and_tra_without_vgg(tree, tmp_path):
                                               spatial_train_preset)
     from stabstitch2_tpu_torch.train import loop
 
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="batch_size 2 is not divisible "
+                                         "by n_devices 3"):
         loop.train_spatial(tree, cfg=SpatialTrainConfig(batch_size=2),
-                           model_dir=str(tmp_path / "a"), n_devices=2,
+                           model_dir=str(tmp_path / "a"), n_devices=3,
                            model_h=MH, model_w=MW, device="cpu")
     with pytest.raises(ValueError, match="perception_weight"):
         loop.train_spatial(tree, cfg=spatial_train_preset("tra"),
