@@ -126,12 +126,14 @@ Phases, each printing one JSON line with its seconds:
     360x480, the stitcher dealt over two replicas on the card (a device
     list; the CLI takes only ``--n_devices``), in bulk and stream upload,
     counted; gates: frames and meshes equal one replica's bit for bit,
-    one wait per ``stitch_begin``, K1 and K2 launched. Then two gloo
-    training ranks on the card (``parallel/train.py:run_ranks``) against
-    one process at batch 8, 360x480: the temporal net two steps, the
-    spatial net one (K1 and K3 differentiated, the global BatchNorm
-    across ranks); gates on the losses, gradients, parameters, the
-    ranks' TF32 settings and launches (:func:`devices_train`). Where two
+    one wait per ``stitch_begin``, K1 and K2 launched. Then the trainer
+    loops as a user calls them (``loop.train_temporal`` two steps,
+    ``loop.train_spatial`` one, at batch 8 on DEVICE_TRAIN_FRAMES frames
+    at 360x480) on two gloo ranks on the card (a device list) against
+    the same loops in one process: gates on each step's loss, the last
+    step's gradients and the update, the parameters, the checkpoint that
+    rank 0 alone writes, and K1 (and in the spatial loop K3) launched on
+    every rank (:func:`devices_train`). Where two
     or more cards are visible, the same over two cards (``--n_devices
     2``, NCCL) and each kernel with its inputs on the last card against
     its plain version; else it prints ``{"devices": {"multi_card":
@@ -250,20 +252,30 @@ FRAC_DIFF_GT1 = 1e-4
 # stitchers on the CPU (tests/test_torch_entry.py: JAX_BF16_GAP_PX 0.0702)
 BF16_MESH_BOUND_PX = 2 * 0.0702
 # the devices phase: cli stitch of DEVICE_VIDEOS clips of DEVICE_FRAMES
-# frames, and training ranks on one batch of DEVICE_BATCH pairs
+# frames, and the trainer loops at batch DEVICE_BATCH on one clip of
+# DEVICE_TRAIN_FRAMES frames (17 temporal and 18 spatial pairs)
 DEVICE_VIDEOS = 2
 DEVICE_FRAMES = 48
 DEVICE_BATCH = 8
-# N training ranks against one process: the loss (tests/test_torch_
-# train_steps.py's LOSS_RTOL) and the parameters after the steps (the JAX
-# package's mesh-against-single bound, tests/test_entry_and_multiview.py)
+DEVICE_TRAIN_FRAMES = 20
+# N training ranks against one process: each step's loss (tests/test_
+# torch_train_steps.py's LOSS_RTOL) and the parameters after the steps
+# (the JAX package's mesh-against-single bound, tests/test_entry_and_
+# multiview.py)
 RANKS_LOSS_RTOL = 1e-4
 RANKS_PARAM_RTOL, RANKS_PARAM_ATOL = 2e-3, 5e-4
-# and each gradient (relative L2): the gradient gate's bound, the trunks
-# (feature_extractor*) at tests/test_torch_train_steps.py's trunk bound;
-# ranks computing in TF32 (a fresh process's default) read 1.5e-2-0.12
+# the first step's gradients (relative L2): the gradient gate's bound,
+# the trunks (feature_extractor*) at tests/test_torch_train_steps.py's
+# trunk bound; ranks computing in TF32 (a fresh process's default) read
+# 1.5e-2-0.12
 RANKS_GRAD_RTOL_L2 = 1e-2
 RANKS_TRUNK_GRAD_RTOL_L2 = 3e-2
+# after an Adam step, per tensor in relative L2, the next step's
+# gradients and the update theta_after - theta_init (tests/test_torch_
+# parallel.py's bounds: Adam's first step moves every weight by +-lr, so
+# rounding in a near-zero gradient moves that weight by 2 lr)
+RANKS_LOOP_GRAD_RTOL_L2 = 0.3
+RANKS_UPDATE_RTOL_L2 = 0.4
 
 
 def emit(obj) -> None:
@@ -2263,115 +2275,117 @@ def phase_train(device, tmp):
 
 
 
-def rank_cases(hw):
-    """The devices phase's training cases at full width: the temporal net,
-    two steps, and the spatial net, one step, each from its random init
-    on one batch of DEVICE_BATCH synthetic pairs, the augmentation drawn
-    from seeded generators."""
-    import numpy as np
+def rel_l2(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+def devices_train(devices, data, tmp, tag):
+    """The trainer loops on two ranks on ``devices`` (gloo on one card,
+    NCCL on two) against the same loops in one process on the first,
+    from the same init on the same batches: ``train_temporal`` two steps
+    (two epochs of one), ``train_spatial`` one, at batch DEVICE_BATCH and
+    full width. Gates: each step's loss within RANKS_LOSS_RTOL; the
+    spatial step's gradients within RANKS_GRAD_RTOL_L2 (trunks
+    RANKS_TRUNK_GRAD_RTOL_L2); the temporal second step's gradients and
+    update within RANKS_LOOP_GRAD_RTOL_L2 and RANKS_UPDATE_RTOL_L2; the
+    parameters within RANKS_PARAM_RTOL / RANKS_PARAM_ATOL; one
+    checkpoint, written by rank 0 alone, holding the returned weights;
+    K1 (and in the spatial loop K3) launched on every rank."""
     import torch
 
     from stabstitch2_tpu_torch.config import (SpatialTrainConfig,
                                               TemporalTrainConfig)
     from stabstitch2_tpu_torch.models import SpatialNet, TemporalNet
     from stabstitch2_tpu_torch.models.backbone import init_weights
-    from stabstitch2_tpu_torch.train.common import draw_aug
-    from synthetic import make_two_view_clip
-
-    v1, v2 = make_two_view_clip(num_frames=DEVICE_BATCH, height=hw[0],
-                                width=hw[1], overlap=0.5, shake_px=4.0,
-                                seed=7)
-    batch = (v1.astype(np.float32) / 127.5 - 1.0,
-             v2.astype(np.float32) / 127.5 - 1.0)
-    cases = []
-    for stage, make, cfg, steps in (
-            ("temporal", TemporalNet, TemporalTrainConfig, 2),
-            ("spatial", SpatialNet, SpatialTrainConfig, 1)):
-        net = make(*hw)
-        init_weights(net, torch.Generator().manual_seed(0))
-        cases.append(dict(
-            stage=stage, model_size=tuple(hw), state_dict=net.state_dict(),
-            batch=batch, cfg=cfg(batch_size=DEVICE_BATCH),
-            factors=[draw_aug(torch.Generator().manual_seed(1 + i))
-                     for i in range(steps)]))
-    return cases
-
-
-def devices_train(devices, tag):
-    """Two ranks on ``devices`` (``parallel/train.py:run_ranks``; gloo on
-    one card, NCCL on two) against one process on the whole batch on the
-    first: the temporal net two steps, the spatial net one. Gates: every
-    step's loss within RANKS_LOSS_RTOL, the first step's gradients within
-    RANKS_GRAD_RTOL_L2 (trunks RANKS_TRUNK_GRAD_RTOL_L2), the parameters
-    after the last step within RANKS_PARAM_RTOL / RANKS_PARAM_ATOL (the
-    JAX package's mesh-against-single bound), the two ranks' states
-    equal, the ranks' TF32 settings the caller's, K1 (and in the spatial
-    step K3) launched on every rank, no rank importing JAX."""
-    import torch
-
     from stabstitch2_tpu_torch.parallel import backend_for
-    from stabstitch2_tpu_torch.parallel import train as ptrain
+    from stabstitch2_tpu_torch.train import loop
 
-    cases = rank_cases(FRAME_HW)
-    t0 = time.perf_counter()
-    per_rank = ptrain.run_ranks(ptrain.cases_on_batches, devices,
-                                ([dict(c, world=len(devices))
-                                  for c in cases],), timeout=600.0)
-    ranks_s = time.perf_counter() - t0
     out = {"devices": [str(d) for d in devices],
-           "backend": backend_for(devices), "ranks_s": ranks_s}
-    for i, case in enumerate(cases):
-        stage = case["stage"]
-        t0 = time.perf_counter()
-        one = ptrain.steps_on_batch(ptrain.Rank(0, 1, devices[0]), **case)
-        torch.cuda.synchronize()
-        one_s = time.perf_counter() - t0
-        res = [r[i] for r in per_rank]
-        require(not any(r["imports_jax"] for r in res),
-                f"{tag} {stage}: no rank imported JAX")
-        require(all(r["tf32"] == one["tf32"] for r in res),
-                f"{tag} {stage}: the ranks' TF32 settings are the caller's "
-                f"{one['tf32']}: {[r['tf32'] for r in res]}")
-        for r in res:
-            want = {"cost_volume": True, "tps_coords": stage == "spatial"}
-            got = {k: v > 0 for k, v in r["launches"].items()}
-            require(all(got[k] for k, v in want.items() if v),
-                    f"{tag} {stage}: K1/K3 launched on every rank "
-                    f"{r['launches']}")
-        for k, v in res[0]["state"].items():
-            require(torch.equal(v, res[1]["state"][k]),
-                    f"{tag} {stage}: the ranks' {k} equal")
-        losses = [(a["total"], b["total"])
-                  for a, b in zip(res[0]["metrics"], one["metrics"])]
-        loss_gap = max(abs(a - b) / abs(b) for a, b in losses)
+           "backend": backend_for(devices)}
+    for stage, make, cfg, steps in (
+            ("temporal", TemporalNet, TemporalTrainConfig(
+                batch_size=DEVICE_BATCH, max_epoch=2), 2),
+            ("spatial", SpatialNet, SpatialTrainConfig(
+                batch_size=DEVICE_BATCH, max_epoch=1), 1)):
+        train = getattr(loop, f"train_{stage}")
+        runs, losses, walls = {}, {}, {}
+        for name, dev in (("ranks", list(devices)), ("one", devices[0])):
+            rec = losses[name] = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name] = train(
+                data, cfg=cfg, model_dir=os.path.join(tmp, f"{stage}_{name}"),
+                max_steps_per_epoch=1, model_h=FRAME_HW[0],
+                model_w=FRAME_HW[1], device=dev,
+                on_step=lambda i, m, rec=rec: rec.append(float(m["total"])))
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+        two, one = runs["ranks"], runs["one"]
+        require(len(losses["ranks"]) == len(losses["one"]) == steps,
+                f"{tag} {stage}: {steps} steps {losses}")
+        loss_gap = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses["ranks"], losses["one"]))
         require(loss_gap <= RANKS_LOSS_RTOL,
-                f"{tag} {stage}: loss {losses} within {RANKS_LOSS_RTOL}")
+                f"{tag} {stage}: losses {losses} within {RANKS_LOSS_RTOL}")
+        path = two.checkpointer.path(steps)
+        require(two.saved_by_rank == [[path], []],
+                f"{tag} {stage}: rank 0 alone saved step {steps}: "
+                f"{two.saved_by_rank}")
+        saved = torch.load(path, map_location="cpu",
+                           weights_only=True)["model"]
+        state, ref = two.net.state_dict(), one.net.state_dict()
+        require(all(torch.equal(saved[k], v.cpu()) for k, v in state.items()),
+                f"{tag} {stage}: the checkpoint holds the returned weights")
         excess = 0.0
-        for k, v in one["state"].items():
+        for k, v in ref.items():
             if v.dtype.is_floating_point:
-                d = (res[0]["state"][k] - v).abs() - (
-                    RANKS_PARAM_ATOL + RANKS_PARAM_RTOL * v.abs())
+                d = (state[k] - v).abs() - (RANKS_PARAM_ATOL
+                                            + RANKS_PARAM_RTOL * v.abs())
                 excess = max(excess, float(d.max()))
         require(excess <= 0.0, f"{tag} {stage}: parameters within rtol "
                 f"{RANKS_PARAM_RTOL}, atol {RANKS_PARAM_ATOL} ({excess})")
         grads = {}
-        for k, g in one["grads"].items():
+        got = dict(two.net.named_parameters())
+        for k, p in one.net.named_parameters():
+            if p.grad is None:
+                continue
             part = "trunk" if k.startswith("feature_extractor") else "heads"
-            rel = float((res[0]["grads"][k].double() - g.double()).norm()
-                        / g.double().norm())
-            grads[part] = max(grads.get(part, 0.0), rel)
-        require(grads["trunk"] <= RANKS_TRUNK_GRAD_RTOL_L2
-                and grads["heads"] <= RANKS_GRAD_RTOL_L2,
-                f"{tag} {stage}: gradients (relative L2) {grads} within "
-                f"{RANKS_TRUNK_GRAD_RTOL_L2} (trunk), {RANKS_GRAD_RTOL_L2}")
-        out[stage] = {"steps": len(case["factors"]),
-                      "loss_ranks_vs_one": losses, "loss_rel_gap": loss_gap,
-                      "param_excess": excess,
-                      "grad_rel_l2_ranks_vs_one": grads,
-                      "launches_per_rank": [r["launches"] for r in res],
-                      "step_s_ranks": [r["step_s"] for r in res],
-                      "step_s_one_process": one["step_s"],
-                      "one_process_s": one_s}
+            grads[part] = max(grads.get(part, 0.0),
+                              rel_l2(got[k].grad, p.grad))
+        info = {"steps": steps, "losses_ranks_vs_one": list(zip(
+                    losses["ranks"], losses["one"])),
+                "loss_rel_gap": loss_gap, "param_excess": excess,
+                "grad_rel_l2_ranks_vs_one": grads,
+                "launches_per_rank": two.launches_by_rank,
+                "saved_by_rank": two.saved_by_rank,
+                "wall_s_ranks": walls["ranks"], "wall_s_one": walls["one"]}
+        if steps == 1:
+            require(grads["trunk"] <= RANKS_TRUNK_GRAD_RTOL_L2
+                    and grads["heads"] <= RANKS_GRAD_RTOL_L2,
+                    f"{tag} {stage}: gradients (relative L2) {grads} within "
+                    f"{RANKS_TRUNK_GRAD_RTOL_L2} (trunk), "
+                    f"{RANKS_GRAD_RTOL_L2}")
+        else:
+            net = make(*FRAME_HW)
+            init_weights(net, torch.Generator().manual_seed(0))
+            init = net.state_dict()
+            update = max(rel_l2(state[k].cpu() - init[k],
+                                ref[k].cpu() - init[k])
+                         for k, p in one.net.named_parameters()
+                         if p.grad is not None)
+            info["update_rel_l2_ranks_vs_one"] = update
+            require(max(grads.values()) <= RANKS_LOOP_GRAD_RTOL_L2
+                    and update <= RANKS_UPDATE_RTOL_L2,
+                    f"{tag} {stage}: step {steps}'s gradients {grads} and "
+                    f"the update {update} (relative L2) within "
+                    f"{RANKS_LOOP_GRAD_RTOL_L2} and {RANKS_UPDATE_RTOL_L2}")
+        want = ["cost_volume"] + (["tps_coords"] if stage == "spatial"
+                                  else [])
+        require(all(r[k] > 0 for r in two.launches_by_rank for k in want),
+                f"{tag} {stage}: {want} launched on every rank "
+                f"{two.launches_by_rank}")
+        out[stage] = info
     return out
 
 
@@ -2513,12 +2527,18 @@ def phase_devices(device, tmp, warp):
         write_clip_dirs(data, num_frames=DEVICE_FRAMES, height=FRAME_HW[0],
                         width=FRAME_HW[1], seed=40 + seed,
                         video_name=f"clip{seed}")
+    train_data = os.path.join(tmp, "devices_train")
+    write_clip_dirs(train_data, num_frames=DEVICE_TRAIN_FRAMES,
+                    height=FRAME_HW[0], width=FRAME_HW[1], seed=50,
+                    video_name="v0")
     one_card = [device, device]
     info = {"phase": "devices", "card": smi, "frame_hw": list(FRAME_HW),
             "videos": DEVICE_VIDEOS, "frames_per_video": DEVICE_FRAMES,
             "stitch_one_card": devices_stitch(one_card, data, tmp,
                                               "two replicas on one card"),
-            "train_one_card": devices_train(one_card, "two gloo ranks"),
+            "train_one_card": devices_train(
+                one_card, train_data, os.path.join(tmp, "one_card"),
+                "two gloo ranks"),
             "held_against_plain": {}}
     count = torch.cuda.device_count()
     if count < 2:
@@ -2530,7 +2550,9 @@ def phase_devices(device, tmp, warp):
     info["multi_card"] = {
         "cards": count,
         "stitch": devices_stitch(cards, data, tmp, "two cards"),
-        "train": devices_train(cards, "two NCCL ranks"),
+        "train": devices_train(cards, train_data,
+                               os.path.join(tmp, "two_cards"),
+                               "two NCCL ranks"),
         "kernels_on_last_card": {"card": str(last),
                                  "max_abs_err": kernels_on(last, warp)}}
     return info

@@ -19,6 +19,13 @@ TF32 off; a fresh process would have cuDNN's TF32 convolutions on).
 Everything a rank gets and returns crosses as ``torch.save`` bytes, and
 the functions a rank runs live in this package, so a rank imports
 neither JAX nor the tests.
+
+A run has no deadline of its own: the caller waits until every rank has
+sent its result, and fails as soon as one rank fails or dies. Two bounds
+catch ranks that hang: the rendezvous fails after RANK_TIMEOUT_S (a rank
+that never arrives), and a collective after GROUP_TIMEOUT_S (a rank that
+stops taking part; it must outlast the work rank 0 does alone while the
+others wait at the epoch's barrier, such as scoring the test set).
 """
 
 from __future__ import annotations
@@ -29,19 +36,20 @@ import io
 import os
 import queue
 import shutil
-import sys
 import tempfile
-import time
 import traceback
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from stabstitch2_tpu_torch.parallel.devices import backend_for
 
-# a hung rendezvous or collective fails after this many seconds
+# a rendezvous that is not complete after this many seconds fails
 RANK_TIMEOUT_S = 600.0
+# a collective or barrier that waits longer than this fails
+GROUP_TIMEOUT_S = 4 * 3600.0
+# a rank that has sent its result is killed if it has not exited by then
+EXIT_TIMEOUT_S = 60.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,11 +97,12 @@ def _tf32() -> Tuple[bool, bool]:
 
 
 def _rank_main(rank: int, devices: Sequence[torch.device], init_method: str,
-               job: bytes, results, timeout: float,
+               job: bytes, results, timeouts: Tuple[float, float],
                tf32: Tuple[bool, bool]) -> None:
     """A spawned rank: take the caller's TF32 settings (a new process has
-    PyTorch's defaults, TF32 convolutions on), join the group, run the
-    job, send its result."""
+    PyTorch's defaults, TF32 convolutions on), join the group within the
+    rendezvous timeout, run the job on a group with the collectives'
+    timeout, send its result."""
     import torch.distributed as dist
 
     try:
@@ -103,14 +112,17 @@ def _rank_main(rank: int, devices: Sequence[torch.device], init_method: str,
         device = devices[rank]
         if device.type == "cuda":
             torch.cuda.set_device(device)
+        fn, args = _loads(job)
+        rendezvous_s, group_s = timeouts
         dist.init_process_group(
             backend_for(devices), init_method=init_method, rank=rank,
             world_size=len(devices),
-            timeout=datetime.timedelta(seconds=timeout))
+            timeout=datetime.timedelta(seconds=rendezvous_s))
         try:
-            fn, args = _loads(job)
-            out = fn(Rank(rank, len(devices), device, dist.group.WORLD),
-                     *args)
+            group = dist.new_group(
+                list(range(len(devices))),
+                timeout=datetime.timedelta(seconds=group_s))
+            out = fn(Rank(rank, len(devices), device, group), *args)
         finally:
             dist.destroy_process_group()
         results.put((rank, True, _dumps(out)))
@@ -120,22 +132,21 @@ def _rank_main(rank: int, devices: Sequence[torch.device], init_method: str,
 
 
 def run_ranks(fn: Callable, devices: Sequence[torch.device], args=(),
-              run_dir: Optional[str] = None,
-              timeout: Optional[float] = None) -> List[Any]:
+              run_dir: Optional[str] = None) -> List[Any]:
     """``fn(rank, *args)`` on ``len(devices)`` spawned processes, rank r on
     ``devices[r]``, under one process group; returns each rank's result
     in rank order.
 
     ``fn`` must be importable by name (a function of this package).
-    Raises with the rank's traceback if a rank fails, and kills every
-    rank if they are not all done within ``timeout`` seconds (default
-    RANK_TIMEOUT_S; a hung rendezvous or collective). The rendezvous file
-    lives in a fresh directory under ``run_dir`` (default: the temporary
-    directory), removed at the end.
+    Waits as long as the ranks work; raises with the rank's traceback as
+    soon as one fails, or when one exits without a result, and then
+    kills every rank. The rendezvous and the collectives are bounded by
+    RANK_TIMEOUT_S and GROUP_TIMEOUT_S (module docstring). The rendezvous
+    file lives in a fresh directory under ``run_dir`` (default: the
+    temporary directory), removed at the end.
     """
     import multiprocessing
 
-    timeout = timeout or RANK_TIMEOUT_S
     # 'cuda' without an index is the current card, as a tensor there has it
     devices = [torch.device("cuda", torch.cuda.current_device())
                if d.type == "cuda" and d.index is None else d
@@ -149,20 +160,16 @@ def run_ranks(fn: Callable, devices: Sequence[torch.device], args=(),
     procs = [ctx.Process(target=_rank_main,
                          args=(r, devices,
                                "file://" + os.path.join(store, "store"), job,
-                               results, timeout, _tf32()))
+                               results, (RANK_TIMEOUT_S, GROUP_TIMEOUT_S),
+                               _tf32()))
              for r in range(len(devices))]
     got: Dict[int, Any] = {}
-    deadline = time.monotonic() + timeout
     try:
         for p in procs:
             p.start()
         while len(got) < len(procs):
-            left = deadline - time.monotonic()
-            if left <= 0:
-                raise TimeoutError(f"{len(procs) - len(got)} of {len(procs)} "
-                                   f"ranks not done after {timeout:.0f} s")
             try:
-                rank, ok, payload = results.get(timeout=min(left, 1.0))
+                rank, ok, payload = results.get(timeout=1.0)
             except queue.Empty:
                 dead = [(i, p.exitcode) for i, p in enumerate(procs)
                         if i not in got and p.exitcode not in (None, 0)]
@@ -173,8 +180,8 @@ def run_ranks(fn: Callable, devices: Sequence[torch.device], args=(),
             if not ok:
                 raise RuntimeError(f"rank {rank} failed:\n{payload}")
             got[rank] = _loads(payload)
-        for p in procs:
-            p.join(timeout=max(deadline - time.monotonic(), 1.0))
+        for p in procs:     # every result is in: a rank stuck exiting is killed
+            p.join(timeout=EXIT_TIMEOUT_S)
     finally:
         for p in procs:
             if p.is_alive():
@@ -185,10 +192,24 @@ def run_ranks(fn: Callable, devices: Sequence[torch.device], args=(),
     return [got[r] for r in range(len(procs))]
 
 
+def _launches() -> Dict[str, int]:
+    """This process's launches of each kernel so far."""
+    from stabstitch2_tpu_torch.ops import (corr_cuda, fused_warp_cuda,
+                                           patch_gather_cuda, tps_coords_cuda)
+
+    return {"cost_volume": sum(corr_cuda.LAUNCHES.values()),
+            "fused_warp": sum(fused_warp_cuda.LAUNCHES.values()),
+            "tps_coords": sum(tps_coords_cuda.LAUNCHES.values()),
+            "patch_gather": sum(patch_gather_cuda.LAUNCHES.values())}
+
+
 def _train_rank(rank: Rank, fn: Callable, kwargs: Dict) -> Dict:
     """A rank of a trainer loop (``train/loop.py``): the loop itself on
-    this rank's device and rows; rank 0 also returns what the caller's
-    ``TrainRun`` is made of, and the steps' loss terms for its
+    this rank's device and rows. Every rank returns the checkpoints it
+    wrote and its kernel launches; rank 0 also what the caller's
+    ``TrainRun`` is made of: the weights, the optimizer state, the last
+    step's gradients (averaged over the ranks and clipped, as the net
+    holds them after the step) and the loss terms of every step for its
     ``on_step``."""
     steps: List = []
 
@@ -196,106 +217,23 @@ def _train_rank(rank: Rank, fn: Callable, kwargs: Dict) -> Dict:
         steps.append((step, {k: float(v) for k, v in metrics.items()}))
 
     run = fn(**kwargs, rank=rank, on_step=record if rank.rank == 0 else None)
-    out = {"saved": list(run.checkpointer.saved)}
+    out = {"saved": list(run.checkpointer.saved), "launches": _launches()}
     if rank.rank == 0:
-        cpu = {k: v.detach().cpu() for k, v in run.net.state_dict().items()}
-        out.update(model=cpu, optimizer=run.opt.state_dict(), steps=steps,
-                   steps_per_epoch=run.opt.steps_per_epoch,
-                   metrics={k: float(v) for k, v in run.metrics.items()})
+        out.update(
+            model={k: v.detach().cpu()
+                   for k, v in run.net.state_dict().items()},
+            grads={k: p.grad.detach().cpu()
+                   for k, p in run.net.named_parameters()
+                   if p.grad is not None},
+            optimizer=run.opt.state_dict(), steps=steps,
+            steps_per_epoch=run.opt.steps_per_epoch,
+            metrics={k: float(v) for k, v in run.metrics.items()})
     return out
 
 
 def run_training(fn: Callable, kwargs: Dict, devices: Sequence[torch.device],
-                 run_dir: str, timeout: Optional[float] = None
-                 ) -> List[Dict]:
+                 run_dir: str) -> List[Dict]:
     """A trainer loop ``fn(**kwargs)`` of ``train/loop.py`` as a
-    data-parallel run over ``devices``: each rank's summary, rank 0's
-    with the trained weights, the optimizer state and the loss terms of
-    every step."""
-    return run_ranks(_train_rank, devices, (fn, kwargs), run_dir=run_dir,
-                     timeout=timeout)
-
-
-def steps_on_batch(rank: Rank, stage: str, model_size, state_dict,
-                   batch: Sequence[np.ndarray], factors: Sequence, cfg,
-                   global_bn: bool = True) -> Dict:
-    """``len(factors)`` optimizer steps of the ``stage`` ('spatial' or
-    'temporal') net from ``state_dict`` on ``rank``'s rows of one global
-    ``batch`` (numpy arrays [B, ...], the same on every rank), step i
-    augmented by ``factors[i]``.
-
-    ``Rank(0, 1, device)`` is one process on the whole batch, the
-    reference the ranks of :func:`run_ranks` are held against.
-    ``global_bn=False`` keeps each rank's BatchNorm statistics its own
-    (the fault a global BatchNorm prevents). Returns the loss terms of
-    each step (averaged over the ranks), the gradients (averaged, before
-    the clip) and the buffers (BatchNorm statistics) of the first step,
-    the state after the last step, each step's seconds (host clock, to
-    the loss terms' fetch), the launches of K1 and K3 on this rank, its
-    TF32 settings, and whether this process has imported JAX or the JAX
-    package (it must not have).
-    """
-    from stabstitch2_tpu_torch.models import SpatialNet, TemporalNet
-    from stabstitch2_tpu_torch.models.backbone import set_process_group
-    from stabstitch2_tpu_torch.ops import corr_cuda, tps_coords_cuda
-    from stabstitch2_tpu_torch.train.common import make_optimizer
-    from stabstitch2_tpu_torch.train.spatial import spatial_loss_fn
-    from stabstitch2_tpu_torch.train.temporal import temporal_loss_fn
-
-    nets = {"spatial": (SpatialNet, spatial_loss_fn),
-            "temporal": (TemporalNet, temporal_loss_fn)}
-    make_net, loss_fn = nets[stage]
-    net = make_net(*model_size)
-    net.load_state_dict(state_dict, strict=True)
-    net.to(rank.device).train()
-    set_process_group(net, rank.group if global_bn else None)
-    opt = make_optimizer(net.parameters(), cfg, 1, rank.group)
-    rows = rank.rows(batch[0].shape[0])
-    a, b = (torch.from_numpy(np.ascontiguousarray(x[rows])).to(rank.device)
-            for x in batch)
-    corr_cuda.LAUNCHES.clear()
-    tps_coords_cuda.LAUNCHES.clear()
-    metrics, grads, buffers, step_s = [], None, None, []
-    for f in factors:
-        t0 = time.perf_counter()
-        opt.zero_grad()
-        total, terms = loss_fn(net, a, b, f, cfg)
-        total.backward()
-        opt.average_grads()
-        if grads is None:
-            grads = {k: p.grad.detach().cpu().clone()
-                     for k, p in net.named_parameters()
-                     if p.grad is not None}
-            buffers = {k: v.detach().cpu().clone()
-                       for k, v in net.named_buffers()}
-        opt.update()
-        metrics.append({k: float(v) for k, v in opt.mean(terms).items()})
-        step_s.append(time.perf_counter() - t0)     # float() waited
-    return {"metrics": metrics, "grads": grads, "buffers": buffers,
-            "step_s": step_s,
-            "state": {k: v.detach().cpu()
-                      for k, v in net.state_dict().items()},
-            "launches": {"cost_volume": sum(corr_cuda.LAUNCHES.values()),
-                         "tps_coords": sum(tps_coords_cuda.LAUNCHES.values())},
-            "tf32": _tf32(),
-            "imports_jax": any(m in ("jax", "stabstitch2_tpu")
-                               or m.startswith(("jax.", "stabstitch2_tpu."))
-                               for m in sys.modules)}
-
-
-def cases_on_batches(rank: Rank, cases: Sequence[Dict]
-                     ) -> List[Optional[Dict]]:
-    """Several :func:`steps_on_batch` runs in one spawn: case i runs on
-    ranks 0 .. ``cases[i]['world']`` - 1 under a group of their own (the
-    others skip it); its other keys are :func:`steps_on_batch`'s. Returns
-    this rank's result of each case (None where it took no part)."""
-    import torch.distributed as dist
-
-    out: List[Optional[Dict]] = []
-    for case in cases:
-        case = dict(case)
-        world = case.pop("world")
-        group = dist.new_group(list(range(world)))
-        out.append(steps_on_batch(Rank(rank.rank, world, rank.device, group),
-                                  **case) if rank.rank < world else None)
-    return out
+    data-parallel run over ``devices``: each rank's summary
+    (:func:`_train_rank`)."""
+    return run_ranks(_train_rank, devices, (fn, kwargs), run_dir=run_dir)

@@ -144,27 +144,17 @@ class VideoStitcher:
         self._copy_streams: Dict[torch.device, torch.cuda.Stream] = {}
         for net in (self.spatial_net, self.temporal_net, self.smooth_net):
             net.to(self.device).eval()
-        self._estimator: Optional[MotionEstimator] = None
-        self._stamp = None
+        self.replicate()
 
-    @property
-    def _motion(self) -> MotionEstimator:
-        """The motion nets, one replica per device: the nets themselves on
-        the first device, copies on the others, copied again whenever the
-        nets' weights have changed since (a checkpoint loaded after the
-        stitcher was made, say), so every replica holds the same weights."""
+    def replicate(self) -> None:
+        """Give each device its replica of the motion nets as they are now:
+        the nets themselves on the first device, copies on the others.
+        With several devices, call it again after loading weights into the
+        nets (``utils/checkpoint.py:stitcher_from_checkpoint`` does)."""
         nets = (self.spatial_net, self.temporal_net)
-        stamp = (tuple(map(id, nets)), self.chunk)
-        if len(self.devices) > 1:
-            stamp += tuple(t._version for net in nets
-                           for t in (*net.parameters(), *net.buffers()))
-        if self._estimator is None or stamp != self._stamp:
-            replicas = [nets] + [
-                tuple(copy.deepcopy(net).to(d).eval() for net in nets)
-                for d in self.devices[1:]]
-            self._estimator = MotionEstimator(replicas, chunk=self.chunk)
-            self._stamp = stamp
-        return self._estimator
+        self._motion = MotionEstimator(
+            [nets] + [tuple(copy.deepcopy(net).to(d).eval() for net in nets)
+                      for d in self.devices[1:]], chunk=self.chunk)
 
     def stitch_arrays(self, hi1: np.ndarray, lo1: Optional[np.ndarray],
                       hi2: np.ndarray, lo2: Optional[np.ndarray]

@@ -102,11 +102,6 @@ class Optimizer:
         clip, then one Adam update at this step's rate. Returns the
         gradients' global norm before clipping."""
         self.average_grads()
-        return self.update()
-
-    def update(self) -> torch.Tensor:
-        """Clip, then one Adam update at this step's rate (the gradients
-        already averaged). Returns their global norm before clipping."""
         norm = self.clip()
         for group in self.adam.param_groups:
             group["lr"] = self.lr(self.step_count)

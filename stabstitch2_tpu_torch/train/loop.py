@@ -29,8 +29,10 @@ draws the same batches and augmentation factors and restores the same
 checkpoint; rank 0 alone writes checkpoints, ``best_ssim.json``,
 summaries and panels and scores the test set, while the others wait at
 a barrier after each epoch. The returned ``TrainRun`` holds rank 0's net
-and optimizer on the first device; ``on_step`` is called after the ranks
-are done, once per step, with rank 0's loss terms (the ranks' average).
+(with its last step's gradients, as one process's net holds them) and
+optimizer on the first device, and what each rank wrote and launched;
+``on_step`` is called after the ranks are done, once per step, with rank
+0's loss terms (the ranks' average).
 """
 
 from __future__ import annotations
@@ -73,20 +75,21 @@ class TrainRun:
     """What a loop leaves: the trained net (train mode), its optimizer
     (whose ``step_count`` is the global step) and the last step's loss
     terms; of a data-parallel run also the checkpoint paths each rank
-    wrote."""
+    wrote and each rank's kernel launches."""
 
     net: nn.Module
     opt: Optimizer
     metrics: Dict[str, torch.Tensor]
     checkpointer: TrainCheckpointer
     saved_by_rank: Optional[List[List[str]]] = None
+    launches_by_rank: Optional[List[Dict[str, int]]] = None
 
 
 def _data_parallel(fn: Callable, kwargs: Dict, devices: List[torch.device],
                    on_step: OnStep, net: nn.Module, cfg) -> TrainRun:
     """``fn(**kwargs)`` as a data-parallel run over ``devices``
     (``parallel/train.py:run_training``), its ``TrainRun`` rebuilt from
-    rank 0's weights into ``net``."""
+    rank 0's weights and last gradients into ``net``."""
     from stabstitch2_tpu_torch.parallel.train import run_training
 
     Rank(0, len(devices), devices[0]).rows(cfg.batch_size)  # before spawning
@@ -94,6 +97,9 @@ def _data_parallel(fn: Callable, kwargs: Dict, devices: List[torch.device],
     lead = ranks[0]
     net.load_state_dict(lead["model"], strict=True)
     net.to(devices[0]).train()
+    for k, p in net.named_parameters():
+        if k in lead["grads"]:
+            p.grad = lead["grads"][k].to(devices[0])
     opt = make_optimizer(net.parameters(), cfg, lead["steps_per_epoch"])
     opt.load_state_dict(lead["optimizer"])
     if on_step is not None:
@@ -102,7 +108,8 @@ def _data_parallel(fn: Callable, kwargs: Dict, devices: List[torch.device],
     return TrainRun(net, opt,
                     {k: torch.tensor(v) for k, v in lead["metrics"].items()},
                     TrainCheckpointer(kwargs["model_dir"]),
-                    saved_by_rank=[r["saved"] for r in ranks])
+                    saved_by_rank=[r["saved"] for r in ranks],
+                    launches_by_rank=[r["launches"] for r in ranks])
 
 
 def _setup(net: nn.Module, cfg, n_samples: int, model_dir: str,

@@ -125,4 +125,5 @@ def stitcher_from_checkpoint(reference_pth_dir: Optional[str] = None,
             sd = load_reference_state_dict(os.path.join(reference_pth_dir,
                                                         name))
             net.load_state_dict(sd, strict=True)
+        stitcher.replicate()
     return stitcher
