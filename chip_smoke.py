@@ -57,15 +57,20 @@ Phases, each printing one JSON line with its seconds:
    jpgs, with the launch counts set to 0 just before and read just after
    (K1 and K2 > 0); then the same videos one at a time (``stitch_arrays``
    and the encode), and the pipelined loop with ``upload_mode="stream"``
-   (counted the same way), in turns. Gates: each mp4 holds 48 frames, the
+   (counted the same way), in turns, the first two also with
+   ``--eager_motion`` (the defaults replay phases 1-4 from CUDA graphs,
+   ``utils/graphs.py``; their replays and replayed launches per video are
+   printed, and peak memory of both). Gates: each mp4 holds 48 frames, the
    pipelined frames equal ``stitch_arrays``' bit for bit and the stream
-   frames and meshes the bulk ones, the view loads went through the
+   frames and meshes the bulk ones, the eager frames and meshes the fused
+   ones and the eager launches of K1 and K2 the fused ones, the view loads went through the
    loader phase's decoder, the bf16 smooth meshes lie within
    BF16_MESH_BOUND_PX of a float32 stitcher's, and one ``stitch_begin``
    waits for the card once in either upload mode (the canvas fetch, by
    ``torch.cuda.set_sync_debug_mode``).
 8. ``trace``: one of those videos through ``--trace_dir``
-   (``torch.profiler``), in bulk and in stream mode; each Chrome trace
+   (``torch.profiler``), in bulk (fused and eager) and in stream mode;
+   each Chrome trace
    must name the cost_volume and fused_warp kernels. Prints the card's
    idle share of the traced window, the 5 device operations that took
    the most time, and the ms of host-to-device copy that overlap kernels.
@@ -1108,12 +1113,18 @@ def phase_cli(device, tmp, data):
     the CLI_VIDEOS clips of CLI_FRAMES frames at 360x480 in ``data``; in
     turns: the pipelined loop, the same videos one at a time (load,
     ``stitch_arrays``, encode), and the pipelined loop with
-    ``upload_mode="stream"``. ``load_s`` times the decode and I420 packing
+    ``upload_mode="stream"``, each in bulk at the defaults (``fused_motion``:
+    phases 1-4 replayed from CUDA graphs) and with ``--eager_motion``.
+    ``load_s`` times the decode and I420 packing
     of all videos on one thread. The launch counts are set to 0 just
     before the first pipelined run and read just after, and again around
-    the first stream run. Gates: every mp4 holds CLI_FRAMES frames; the
-    pipelined frames equal ``stitch_arrays``' bit for bit, and the stream
-    frames the bulk ones; the view loads of the pipelined run went
+    the first stream run and the first eager pipelined run; the graphs'
+    replays and the launches they made are read around the first
+    pipelined run, per video. Gates: every mp4 holds CLI_FRAMES frames; the
+    pipelined frames equal ``stitch_arrays``' bit for bit, the stream
+    frames the bulk ones and the eager frames and meshes the fused ones;
+    the fused run replayed graphs, and launched K1 and K2 as often as the
+    eager run; the view loads of the pipelined run went
     through the decoder the loader phase built; the bf16 smooth meshes lie
     within BF16_MESH_BOUND_PX of a float32 stitcher's on each clip; one
     ``stitch_begin`` waits for the card once (the canvas fetch), in bulk
@@ -1162,6 +1173,15 @@ def phase_cli(device, tmp, data):
         finally:
             st.upload_mode = "bulk"
 
+    def eager(run):
+        def go():
+            st.fused_motion = False
+            try:
+                return run()
+            finally:
+                st.fused_motion = True
+        return go
+
     def sequential():
         got = {}
         t0 = time.perf_counter()
@@ -1187,8 +1207,27 @@ def phase_cli(device, tmp, data):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    replays, replayed = st.graphs.replays, collections.Counter(
+        st.graphs.replayed)
     (pipe, pipe_s), launches, decoded = counted(pipelined)
     peak = torch.cuda.max_memory_allocated()
+    # the graphs' pools are reserved by the allocator; a replay allocates
+    # nothing, so the reserved peak is the one that shows them
+    peak_reserved = torch.cuda.max_memory_reserved()
+    graphs = {"graphs": len(st.graphs), "captures": st.graphs.captures,
+              "replays_per_video": (st.graphs.replays - replays) / CLI_VIDEOS,
+              "replayed_launches_per_video": {
+                  k: v / CLI_VIDEOS for k, v in
+                  (st.graphs.replayed - replayed).items()}}
+    require(graphs["replays_per_video"] > 0
+            and graphs["replayed_launches_per_video"].get("cost_volume_r5"),
+            f"the default path replayed K1 from graphs: {graphs}")
+    torch.cuda.reset_peak_memory_stats()
+    (pipe_e, pipe_e_s), launches_eager, _ = counted(eager(pipelined))
+    peak_eager = torch.cuda.max_memory_allocated()
+    peak_reserved_eager = torch.cuda.max_memory_reserved()
+    require(launches_eager == launches,
+            f"fused launches {launches} equal eager {launches_eager}")
     decoder = "native" if native.available() else "cv2"
     require(decoded == {decoder: 2 * CLI_VIDEOS},
             f"the pipelined run's view loads went through {decoder}: "
@@ -1198,14 +1237,25 @@ def phase_cli(device, tmp, data):
     require(all(n == CLI_FRAMES for n in out_frames.values()),
             f"mp4 frame counts {out_frames}")
     seq, seq_s = sequential()
+    seq_e, seq_e_s = eager(sequential)()
     (strm, strm_s), launches_stream, _ = counted(streamed)
-    walls = {"pipelined_s": [pipe_s], "sequential_s": [seq_s],
+    walls = {"pipelined_s": [pipe_s], "pipelined_eager_s": [pipe_e_s],
+             "sequential_s": [seq_s], "sequential_eager_s": [seq_e_s],
              "pipelined_stream_s": [strm_s]}
     for _ in range(CLI_ROUNDS - 1):
         walls["pipelined_s"].append(pipelined()[1])
+        walls["pipelined_eager_s"].append(eager(pipelined)()[1])
         walls["sequential_s"].append(sequential()[1])
+        walls["sequential_eager_s"].append(eager(sequential)()[1])
         walls["pipelined_stream_s"].append(streamed()[1])
     for name, r in pipe.items():
+        for e, how in ((pipe_e[name], "pipelined"), (seq_e[name],
+                                                     "sequential")):
+            same = (r.frames.shape == e.frames.shape
+                    and bool((r.frames == e.frames).all())
+                    and mesh_gap(r, e) == 0.0)
+            require(same, f"{name}: fused {how} frames and meshes equal "
+                          "--eager_motion's")
         same = (r.frames.shape == seq[name].frames.shape
                 and bool((r.frames == seq[name].frames).all()))
         require(same, f"{name}: pipelined frames equal stitch_arrays'")
@@ -1251,10 +1301,19 @@ def phase_cli(device, tmp, data):
         "decoder": decoder, "view_loads": decoded,
         "load_s": load_s, "wall_s": walls, "fps_pipelined": [frames / w for w in
                                            walls["pipelined_s"]],
+        "fps_pipelined_eager": [frames / w for w in
+                                walls["pipelined_eager_s"]],
         "fps_sequential": [frames / w for w in walls["sequential_s"]],
+        "fps_sequential_eager": [frames / w for w in
+                                 walls["sequential_eager_s"]],
         "fps_pipelined_stream": [frames / w for w in
                                  walls["pipelined_stream_s"]],
-        "stream_equals_bulk": True,
+        "stream_equals_bulk": True, "fused_equals_eager": True,
+        "fused_motion_graphs": graphs, "launches_eager": launches_eager,
+        "max_memory_allocated_bytes_eager": peak_eager,
+        "max_memory_reserved_bytes": peak_reserved,
+        "max_memory_reserved_bytes_eager": peak_reserved_eager,
+        "phase_ms_eager": {n: r.ms for n, r in seq_e.items()},
         "ms_bulk": up_spatial(pipe), "ms_stream": up_spatial(strm),
         "launches_stream": launches_stream,
         "stitch_begin_syncs_stream": syncs_stream,
@@ -1269,8 +1328,9 @@ def phase_cli(device, tmp, data):
 
 def phase_trace(st, videos, tmp):
     """One video through ``--trace_dir``: ``stitch_stream(...,
-    trace_dir=...)`` as ``cmd_stitch`` calls it, in bulk and then in
-    stream upload mode; then both again with QUEUED_SLEEP_MS of
+    trace_dir=...)`` as ``cmd_stitch`` calls it, in bulk (the motion's
+    graphs replayed), in bulk with ``--eager_motion`` and in stream upload
+    mode; then bulk and stream again with QUEUED_SLEEP_MS of
     ``torch.cuda._sleep`` enqueued on the card just before
     ``stitch_begin`` (inside the trace), the case of a card with work
     queued ahead, where copies on the copy stream can run beside
@@ -1295,11 +1355,14 @@ def phase_trace(st, videos, tmp):
         torch.cuda._sleep(cycles)
         return begin(*arrays)
 
-    for mode, queued in (("bulk", False), ("stream", False),
-                         ("bulk", True), ("stream", True)):
-        name = mode + ("_queued" if queued else "")
+    for mode, queued, fused in (("bulk", False, True), ("bulk", False, False),
+                                ("stream", False, True), ("bulk", True, True),
+                                ("stream", True, True)):
+        name = (mode + ("" if fused else "_eager")
+                + ("_queued" if queued else ""))
         d = os.path.join(tmp, f"trace_{name}")
         st.upload_mode = mode
+        st.fused_motion = fused
         if queued:
             st.stitch_begin = queued_begin
         try:
@@ -1308,6 +1371,7 @@ def phase_trace(st, videos, tmp):
                 cli.mp4_sink(os.path.join(tmp, "trace_out")), trace_dir=d)
         finally:
             st.upload_mode = "bulk"
+            st.fused_motion = True
             if queued:
                 del st.stitch_begin
         files = sorted(glob.glob(os.path.join(d, "*.json")))
@@ -1465,7 +1529,11 @@ class PathInputs:
     distinct signature (tensor shapes and dtypes and the other arguments,
     the spline's normalization span aside), for at most HELD_PER_KERNEL
     signatures, and then calls the wrapper. The latest, not the first: a
-    stream's first temporal cost volume reads all-zero features. :meth:`hold` runs each kept call through the
+    stream's first temporal cost volume reads all-zero features. A call
+    made while a CUDA graph is being captured (``utils/graphs.py``) is not
+    kept: its arguments hold no values yet. A program's first call runs
+    eagerly before its capture, so the path's inputs are kept all the
+    same. :meth:`hold` runs each kept call through the
     wrapper and the plain version on the same card tensors; the launches
     it makes are taken off the wrapper's count again."""
 
@@ -1497,7 +1565,10 @@ class PathInputs:
                        **kwargs):
                 seen = self.calls[_name]
                 key = self._key(args, kwargs)
-                if key in seen or len(seen) < HELD_PER_KERNEL:
+                if (torch.cuda.is_available()
+                        and torch.cuda.is_current_stream_capturing()):
+                    pass
+                elif key in seen or len(seen) < HELD_PER_KERNEL:
                     seen[key] = ([copy(x) for x in args],
                                  {n: copy(v) for n, v in kwargs.items()})
                 return _wrapper(*args, **kwargs)
@@ -1568,7 +1639,10 @@ def phase_online(device, tmp):
     of ``stitch_arrays``' and route A's frames equal route B's. K1 and K2
     (the burst's and a steady push's shapes, from the warm-up) and K3 and
     K4 (route B's stream) are held against their plain versions on those
-    inputs."""
+    inputs. The pushes replay the captured step (``fused_motion``, the
+    default); the same clip through the uncaptured step
+    (``fused_motion=False``) must give the same frames and window meshes
+    bit for bit, and its push ms and trace are printed beside them."""
     import dataclasses
     import warnings
 
@@ -1618,6 +1692,26 @@ def phase_online(device, tmp):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     total = counts()
+    require(o.graphs.captures == 1 and o.graphs.replays == n - 1,
+            f"one captured step, replayed by every later push: "
+            f"{o.graphs.captures}, {o.graphs.replays}")
+    # the uncaptured step on the same clip: the same bits
+    oe = OnlineStitcher(dataclasses.replace(st, fused_motion=False))
+    require(oe.graphs is None, "fused_motion=False steps eagerly")
+    ms_eager, frames_f, frames_e = [], [], []
+    for a, b in zip(v1, v2):
+        t0 = time.perf_counter()
+        frames_e += oe.push(a, b)
+        ms_eager.append((time.perf_counter() - t0) * 1e3)
+    o2 = OnlineStitcher(st)
+    for a, b in zip(v1, v2):
+        frames_f += o2.push(a, b)
+    same = (len(frames_f) == len(frames_e) == n
+            and all(np.array_equal(f, e) for f, e in zip(frames_f, frames_e))
+            and all(torch.equal(f, e) for f, e in zip(o2.window_smooth,
+                                                      oe.window_smooth)))
+    require(same, "captured online step: frames and window meshes equal "
+                  "the uncaptured step's")
     launches = {"cost_volume_r5": int(total[0]),
                 "cost_volume_r3": int(total[1]),
                 "fused_warp": int(total[2])}
@@ -1640,6 +1734,12 @@ def phase_online(device, tmp):
     traced, names = trace_stats(files[0])
     for k in ("cost_volume", "fused_warp"):
         require(any(k in x for x in names), f"online trace names a {k} kernel")
+    d = os.path.join(tmp, "online_trace_eager")
+    o_tr = OnlineStitcher(dataclasses.replace(st, fused_motion=False))
+    stream(o_tr, v1[:8], v2[:8])
+    with trace(d):
+        stream(o_tr, v1[8:8 + TRACE_PUSHES], v2[8:8 + TRACE_PUSHES])
+    traced_eager, _ = trace_stats(glob.glob(os.path.join(d, "*.json"))[0])
 
     yuv_a, conv_a, re_a = yuv_of_bgr_on_canvas(st, v1, v2)
     st_b = dataclasses.replace(st, config=StitchConfig(fused_warp=False))
@@ -1680,6 +1780,13 @@ def phase_online(device, tmp):
             "first_window_burst_ms": ms[6],
             "steady_push_ms_median": float(np.median(steady_ms)),
             "steady_push_ms_p90": float(np.percentile(steady_ms, 90)),
+            "eager_steady_push_ms_median": float(np.median(
+                [ms_eager[i] for i in steady])),
+            "eager_steady_push_ms_p90": float(np.percentile(
+                [ms_eager[i] for i in steady], 90)),
+            "captured_equals_uncaptured": True,
+            "graph_replays_per_push": o.graphs.replays / (n - 1),
+            "graph_replayed_launches": dict(o.graphs.replayed),
             "first_pushes_ms": ms[:6], "push_ms": ms,
             "emitted_per_push": emitted, "waits_per_push": waits,
             "debug_mode_waits_per_push": hidden,
@@ -1693,6 +1800,7 @@ def phase_online(device, tmp):
             "mesh_atol_px": ONLINE_MESH_ATOL_PX,
             "f32_route_a_vs_b": ab, "route_b_launches": gather,
             "trace_pushes": TRACE_PUSHES, "trace": traced,
+            "trace_eager": traced_eager,
             "held_against_plain": plain}
 
 
@@ -1763,10 +1871,14 @@ def phase_multi(device, tmp):
     torch.cuda.synchronize()
     corr_cuda.LAUNCHES.clear()
     fused_warp_cuda.LAUNCHES.clear()
+    replays = st.graphs.replays
     t0 = time.perf_counter()
     pending = tv.stitch_multi_begin(st, packed)
     frames, fmt = tv.stitch_multi_finish(pending)
     wall = time.perf_counter() - t0
+    replays = st.graphs.replays - replays
+    require(st.fused_motion and replays > 0,
+            f"the chain's motion replayed from graphs: {replays}")
     launches = {"cost_volume_r5": corr_cuda.LAUNCHES[5],
                 "cost_volume_r3": corr_cuda.LAUNCHES[3],
                 "fused_warp": fused_warp_cuda.LAUNCHES["fused_warp"]}
@@ -1829,6 +1941,7 @@ def phase_multi(device, tmp):
             "canvas_hw": [c.out_h, c.out_w],
             "padded_canvas_hw": [c.pad_h, c.pad_w], "wall_s": wall,
             "fps": T / wall, "launches": launches, "cli_s": cli_s,
+            "graph_replays": replays,
             "mp4_frames": n_mp4, "f32_route_a_vs_b": ab,
             "route_b_launches": gather, "chain_card_vs_cpu_px": chain_gap,
             "chain_atol_px": CHAIN_ATOL_PX,
@@ -1867,9 +1980,13 @@ def phase_metric(device, tmp):
     torch.cuda.synchronize()
     corr_cuda.LAUNCHES.clear()
     tps_coords_cuda.LAUNCHES.clear()
+    replays = st.graphs.replays
     t0 = time.perf_counter()
     got = evaluate_video(st, v1, v2, upload=args.upload_format)
     ms = (time.perf_counter() - t0) * 1e3
+    replays = st.graphs.replays - replays
+    require(st.fused_motion and replays > 0,
+            f"the harness's motion replayed from graphs: {replays}")
     launches = {"cost_volume_r5": corr_cuda.LAUNCHES[5],
                 "cost_volume_r3": corr_cuda.LAUNCHES[3],
                 "tps_coords": tps_coords_cuda.LAUNCHES["tps_coords"]}
@@ -1901,6 +2018,7 @@ def phase_metric(device, tmp):
             "frame_hw": list(FRAME_HW), "compute_dtype": "bfloat16",
             "upload": args.upload_format, "metrics": got,
             "ms_per_video": ms, "launches": launches,
+            "graph_replays": replays,
             "f32_card": card, "f32_cpu": cpu, "f32_rel_gap": rel,
             "rtol": METRIC_RTOL, "cpu_frames": n,
             "cli_report_average": report["average"],
@@ -2443,7 +2561,12 @@ def devices_stitch(devices, data, tmp, tag):
         ref, one_s = run(one, mode)
         corr_cuda.LAUNCHES.clear()
         fused_warp_cuda.LAUNCHES.clear()
+        replays = st.graphs.replays
         got, wall = run(st, mode)
+        replays = st.graphs.replays - replays
+        require((replays > 0) == (mode == "bulk"),
+                f"{tag} {mode}: graph replays {replays} (bulk replays, "
+                "stream runs eagerly)")
         launches = {"cost_volume": sum(corr_cuda.LAUNCHES.values()),
                     "fused_warp": fused_warp_cuda.LAUNCHES["fused_warp"]}
         require(all(v > 0 for v in launches.values()),
@@ -2462,6 +2585,7 @@ def devices_stitch(devices, data, tmp, tag):
         require(len(syncs) == 1, f"{tag} {mode}: one wait per stitch_begin "
                                  f"(the canvas fetch): {syncs}")
         out[mode] = {"bit_equal_to_one_device": True, "launches": launches,
+                     "graph_replays": replays,
                      "fps": frames / wall, "fps_one_device": frames / one_s,
                      "stitch_begin_waits": len(syncs)}
     return out

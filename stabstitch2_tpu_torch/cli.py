@@ -20,8 +20,12 @@ Shared flags: [--reference_pth_dir <dir>] [--preset ssd|tra]
 [--fusion_mode AVERAGE|LINEAR] [--warp_mode NORMAL|FAST] [--chunk N]
 [--download_format yuv420|bgr] [--upload_format i420|bgr]
 [--no_phase_sync] [--trace_dir <dir>] [--n_devices N] [--device cuda|cpu]
-[--seed N]; ``--trace_dir`` traces ``stitch`` only, the other commands
-ignore it. ``--n_devices N`` deals the chunks of every video over N cards
+[--seed N] [--eager_motion] [--fused_motion]; ``--trace_dir`` traces
+``stitch`` only, the other commands ignore it. As in the JAX CLI, the
+motion and smoothing of a video run as captured programs (CUDA graphs on
+the card, ``utils/graphs.py``); ``--eager_motion`` runs them eagerly, with
+the per-phase attribution of the spatial and temporal ms, and
+``--fused_motion``, the default, is accepted. ``--n_devices N`` deals the chunks of every video over N cards
 (N replicas on the CPU with ``--device cpu``), with the frames of one
 card; it raises when fewer cards are visible.
 
@@ -243,6 +247,7 @@ def build_stitcher(args, files=None):
         rng_seed=args.seed, config=config, chunk=args.chunk,
         n_devices=args.n_devices, device=args.device)
     stitcher.sync_phases = not args.no_phase_sync
+    stitcher.fused_motion = not args.eager_motion
     return stitcher
 
 
@@ -438,6 +443,13 @@ def add_stitcher_args(p: argparse.ArgumentParser, download: str,
                    help="data-parallel inference: deal the frame chunks over "
                         "this many cards (replicas on the CPU with --device "
                         "cpu); raises if fewer cards are visible")
+    p.add_argument("--fused_motion", action="store_true",
+                   help="(the default) run the motion and smoothing of a "
+                        "video as captured programs: CUDA graphs on the card; "
+                        "accepted for compatibility")
+    p.add_argument("--eager_motion", action="store_true",
+                   help="run the motion and smoothing eagerly, kernel by "
+                        "kernel, with the per-phase spatial/temporal ms")
     add_device_args(p)
 
 

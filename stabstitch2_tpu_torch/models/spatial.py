@@ -33,7 +33,7 @@ from stabstitch2_tpu_torch.ops.cost_volume import ccl_flow
 from stabstitch2_tpu_torch.ops.dlt import solve_dlt
 from stabstitch2_tpu_torch.ops.homography import homo_warp, normalize_homography
 from stabstitch2_tpu_torch.ops.mesh import h2mesh, rigid_mesh
-from stabstitch2_tpu_torch.utils.transfer import constant
+from stabstitch2_tpu_torch.utils.transfer import shape_constant
 
 
 def feature_sizes(model_h: int, model_w: int):
@@ -46,8 +46,8 @@ def feature_sizes(model_h: int, model_w: int):
 def corner_points(img_h: float, img_w: float, batch: int,
                   dtype=torch.float32, device=None) -> torch.Tensor:
     """The four image corners [B, 4, 2] in the reference's order TL, TR, BL, BR."""
-    pts = constant([[0.0, 0.0], [img_w, 0.0], [0.0, img_h], [img_w, img_h]],
-                   dtype, device)
+    pts = shape_constant([[0.0, 0.0], [img_w, 0.0], [0.0, img_h],
+                          [img_w, img_h]], dtype, device)
     return pts[None].expand(batch, 4, 2)
 
 

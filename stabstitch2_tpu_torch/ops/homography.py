@@ -12,7 +12,7 @@ from typing import Tuple
 import torch
 
 from stabstitch2_tpu_torch.ops.interp import bilinear_mask, bilinear_sample
-from stabstitch2_tpu_torch.utils.transfer import constant
+from stabstitch2_tpu_torch.utils.transfer import shape_constant
 
 
 def normalized_grid(height: int, width: int, dtype=torch.float32,
@@ -62,8 +62,8 @@ def normalize_homography(H: torch.Tensor, height: float,
                          width: float) -> torch.Tensor:
     """Conjugate a pixel homography into normalized coords: M^-1 H M."""
     w2, h2 = float(width) / 2.0, float(height) / 2.0
-    M = constant([[w2, 0.0, w2], [0.0, h2, h2], [0.0, 0.0, 1.0]], H.dtype,
-                 H.device)
-    M_inv = constant([[1.0 / w2, 0.0, -1.0], [0.0, 1.0 / h2, -1.0],
-                      [0.0, 0.0, 1.0]], H.dtype, H.device)
+    M = shape_constant([[w2, 0.0, w2], [0.0, h2, h2], [0.0, 0.0, 1.0]],
+                       H.dtype, H.device)
+    M_inv = shape_constant([[1.0 / w2, 0.0, -1.0], [0.0, 1.0 / h2, -1.0],
+                            [0.0, 0.0, 1.0]], H.dtype, H.device)
     return torch.einsum("ij,bjk,kl->bil", M_inv, H, M)

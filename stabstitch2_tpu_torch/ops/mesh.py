@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from stabstitch2_tpu_torch.config import GRID_H, GRID_W
-from stabstitch2_tpu_torch.utils.transfer import constant
+from stabstitch2_tpu_torch.utils.transfer import constant, shape_constant
 
 
 def rigid_mesh(height: float, width: float, *, grid_h: int = GRID_H,
@@ -33,18 +33,28 @@ def normalize_mesh(mesh: torch.Tensor, height, width) -> torch.Tensor:
     are the JAX package's two cases, a static and a traced extent.
     """
     if isinstance(width, (int, float)) and isinstance(height, (int, float)):
-        sx, sy = 2.0 / width, 2.0 / height
+        scale = _constant(height, width)([2.0 / width, 2.0 / height],
+                                         mesh.dtype, mesh.device)
     else:
-        sx = np.float32(2.0) / np.float32(width)
-        sy = np.float32(2.0) / np.float32(height)
-    return mesh * constant([sx, sy], mesh.dtype, mesh.device) - 1.0
+        scale = constant([np.float32(2.0) / np.float32(width),
+                          np.float32(2.0) / np.float32(height)],
+                         mesh.dtype, mesh.device)
+    return mesh * scale - 1.0
+
+
+def _constant(height, width):
+    """Integer sizes (a model's, a feature map's) are few and fixed, so
+    their constants are made once and kept (``shape_constant``, which a
+    captured program may read); other extents (a canvas's) are not."""
+    sized = isinstance(height, int) and isinstance(width, int)
+    return shape_constant if sized else constant
 
 
 def denormalize_mesh(mesh: torch.Tensor, height: float,
                      width: float) -> torch.Tensor:
     """Inverse of :func:`normalize_mesh`."""
-    return (mesh + 1.0) * constant([width / 2.0, height / 2.0], mesh.dtype,
-                                   mesh.device)
+    return (mesh + 1.0) * _constant(height, width)(
+        [width / 2.0, height / 2.0], mesh.dtype, mesh.device)
 
 
 def mesh_points(mesh: torch.Tensor) -> torch.Tensor:

@@ -1,38 +1,60 @@
 """Spatial and temporal motion, chunked (port of ``pipeline/motion.py``).
 
-PyTorch runs eagerly, so the chunks are plain slices: no padding to a
-compiled shape and no fused program. The temporal net takes both views of
-a chunk in one batch, as the JAX package's fused motion program does, so
-each temporal chunk is one K1 launch at [2 * chunk, H/8, W/8, 128].
+The nets run chunk by chunk, in two programs per chunk k: the spatial
+motion of both views together with the temporal trunk's features of both
+views (:meth:`MotionEstimator.motion_chunk`), and the temporal motions of
+the chunk's frame pairs, both views in one batch [2c], so that each pair
+chunk is one K1 launch at [2c, H/8, W/8, 128]
+(:meth:`MotionEstimator.pair_chunk`). Pair chunk k holds the pairs (t,
+t+1) of frame chunk k's frames t; its last frame pairs with the next
+chunk's first (the one-frame halo) and the video's last frame with
+itself, a motion that is dropped, as the JAX package's fused motion
+program shifts its features.
 
-The nets run on a list of chunks, chunk k on replica k mod N of the nets
-(one replica per device; N is 1 unless the stitcher was built with
-``n_devices``), and the motions are gathered on the first replica's
-device. Each chunk runs at the shape and through the kernels it has on
-one device, so N replicas give the motions of one bit for bit. A
-temporal pair chunk reads the next frame chunk's first features (the
-one-frame halo), copied to its device.
+Given a :class:`~stabstitch2_tpu_torch.utils.graphs.GraphCache` (the
+stitcher's ``fused_motion``, the default), each program runs at the one
+chunk shape, a short last chunk padded with its last frame and cropped
+after (motion at t depends on frames <= t + 1 only, and the pad repeats
+frame T - 1), through the cache: on a card a CUDA graph per program, shape
+and replica, the counterpart of the ``lax.map`` body of the JAX package's
+``_motion_fused``. Without one they run eagerly at the true chunk sizes.
+Where T is a multiple of the chunk the two run the same kernels on the
+same shapes.
+
+The chunks are dealt over the replicas of the nets (one per device; N is
+1 unless the stitcher was built with ``n_devices``), chunk k on replica k
+mod N, and the motions are gathered on the first replica's device. Each
+chunk runs at the shape and through the kernels it has on one device, so
+N replicas give the motions of one bit for bit.
 
 The bulk path hands over whole videos (:meth:`MotionEstimator.split`
-deals them) or chunk lists; the stream upload (``pipeline/stitcher.py``)
-hands over chunk by chunk (:meth:`MotionEstimator.spatial_chunk`,
-``features_chunk``, then ``temporal_from_features``). Both make the same
-calls on batches of the same composition, so cuDNN picks the same
-algorithms and the two give the same bits.
+deals them) or chunk lists; the stream upload (``pipeline/stitcher.py``) hands over chunk by chunk
+(:meth:`MotionEstimator.motion_chunk`, then ``temporal_from_features``),
+always eagerly. Both make the same calls on batches of the same
+composition, so cuDNN picks the same algorithms and the two give the same
+bits.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from stabstitch2_tpu_torch.models import SpatialNet, TemporalNet
 from stabstitch2_tpu_torch.models.spatial import spatial_motions
+from stabstitch2_tpu_torch.utils.graphs import GraphCache
 
 # a video's frames: one tensor, or its chunks (each on its own device)
 Frames = Union[torch.Tensor, List[torch.Tensor]]
+
+
+def pad_to(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` [m, ...] padded to [n, ...] by repeating its last frame."""
+    if x.shape[0] == n:
+        return x
+    return torch.cat([x, x[-1:].expand(n - x.shape[0], *x.shape[1:])], 0)
 
 
 @dataclasses.dataclass
@@ -97,6 +119,44 @@ class MotionEstimator:
         f = net.features(torch.cat([a, b], 0))
         return f[:a.shape[0]], f[a.shape[0]:]
 
+    def _run(self, name: str, k: int, program: Callable,
+             graphs: Optional[GraphCache], *chunks: torch.Tensor):
+        """``program(*chunks)`` of chunk ``k``: eagerly without ``graphs``;
+        else at the chunk shape (padded, then cropped) through ``graphs``,
+        keyed on chunk k's replica."""
+        if graphs is None:
+            return program(*chunks)
+        n = chunks[0].shape[0]
+        outs = graphs.run(name, program,
+                          *(pad_to(x, self.chunk) for x in chunks),
+                          modules=self.replicas[self.owner(k)])
+        return tuple(o[:n] for o in outs)
+
+    def motion_chunk(self, a: torch.Tensor, b: torch.Tensor, k: int = 0,
+                     graphs: Optional[GraphCache] = None
+                     ) -> Tuple[torch.Tensor, ...]:
+        """Chunk ``k`` of both views: (motion1, motion2, features1,
+        features2) on its replica's device, in one program."""
+        return self._run("motion", k, lambda a, b: (
+            *self.spatial_chunk(a, b, k), *self.features_chunk(a, b, k)),
+            graphs, a, b)
+
+    @torch.no_grad()
+    def pair_chunk(self, p1: torch.Tensor, p2: torch.Tensor,
+                   n1: torch.Tensor, n2: torch.Tensor, k: int = 0,
+                   graphs: Optional[GraphCache] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Both views' temporal motions from features p* to n* (chunk
+        ``k``'s pairs, on its replica's device), in one batch [2c]."""
+        net = self.replicas[self.owner(k)][1]
+
+        def program(p1, p2, n1, n2):
+            m = net.motion_from_features(torch.cat([p1, p2], 0),
+                                         torch.cat([n1, n2], 0))
+            return m[:p1.shape[0]], m[p1.shape[0]:]
+
+        return self._run("pair", k, program, graphs, p1, p2, n1, n2)
+
     def spatial(self, frames1: Frames, frames2: Frames
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Both views' spatial motions [T, GH+1, GW+1, 2] on the first
@@ -106,44 +166,37 @@ class MotionEstimator:
                                      self.split(frames2)))))
         return self.gather(m1), self.gather(m2)
 
-    def features(self, frames1: Frames, frames2: Frames
-                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-        """Both views' temporal features, one per chunk on its device."""
-        f1, f2 = zip(*(self.features_chunk(a, b, k) for k, (a, b) in
-                       enumerate(zip(self.split(frames1),
-                                     self.split(frames2)))))
-        return list(f1), list(f2)
-
     @torch.no_grad()
     def temporal_from_features(self, f1: Sequence[torch.Tensor],
-                               f2: Sequence[torch.Tensor]
+                               f2: Sequence[torch.Tensor],
+                               graphs: Optional[GraphCache] = None
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Both views' temporal motions [T, GH+1, GW+1, 2], zeros at t = 0,
         on the first device, from their per-chunk features (chunk k on
-        replica k's device). Pair chunk k (frames s..e-1 against s+1..e)
-        runs on frame chunk k's replica, both views in one batch; frame e
-        is the next chunk's first (the halo)."""
+        replica k's device): pair chunk k (:meth:`pair_chunk`) on frame
+        chunk k's replica, its next features those of frames s+1..e, frame
+        e the next chunk's first (the halo) or, at the video's end, the
+        last frame again (that motion is dropped)."""
         T = sum(f.shape[0] for f in f1)
         m1, m2 = [], []
-        for k, (s, e) in enumerate(self.chunks(T - 1)):
-            n, dev = e - s, f1[k].device
+        for k in range(len(f1)):
+            dev = f1[k].device
 
             def nxt(f):
-                x = f[k][1:n + 1]
-                if x.shape[0] < n:
-                    x = torch.cat([x, f[k + 1][:n - x.shape[0]].to(
-                        dev, non_blocking=True)], 0)
-                return x
+                last = (f[k + 1][:1].to(dev, non_blocking=True)
+                        if k + 1 < len(f) else f[k][-1:])
+                return torch.cat([f[k][1:], last], 0)
 
-            net = self.replicas[self.owner(k)][1]
-            m = net.motion_from_features(torch.cat([f1[k][:n], f2[k][:n]], 0),
-                                         torch.cat([nxt(f1), nxt(f2)], 0))
-            m1.append(m[:n])
-            m2.append(m[n:])
+            a, b = self.pair_chunk(f1[k], f2[k], nxt(f1), nxt(f2), k, graphs)
+            m1.append(a)
+            m2.append(b)
         zero = torch.zeros_like(m1[0][:1], device=self.devices[0])
-        return self.gather([zero] + m1), self.gather([zero] + m2)
+        return self.gather([zero] + m1)[:T], self.gather([zero] + m2)[:T]
 
     def temporal_pair(self, frames1: Frames, frames2: Frames
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Both views' temporal motions [T, GH+1, GW+1, 2], zeros at t = 0."""
-        return self.temporal_from_features(*self.features(frames1, frames2))
+        f1, f2 = zip(*(self.features_chunk(a, b, k) for k, (a, b) in
+                       enumerate(zip(self.split(frames1),
+                                     self.split(frames2)))))
+        return self.temporal_from_features(f1, f2)

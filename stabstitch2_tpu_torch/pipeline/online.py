@@ -3,11 +3,21 @@
 Push one synchronized frame pair at a time; stabilized panoramas come out
 with a latency of ``window - 1`` frames:
 
-- each push runs the motion chain eagerly on that pair: the model input,
-  ``SpatialNet`` on the pair, ``TemporalNet.features`` on both views with
-  the previous push's features cached, the temporal motion (K1), the
-  transport into the stitched frame, the window's roll buffers and
-  ``SmoothNet`` on the one window;
+- each push runs one step on that pair (:meth:`OnlineStitcher._step`,
+  the port of the JAX package's fused ``_step``): the I420 unpack, the
+  model input, ``SpatialNet`` on the pair, ``TemporalNet.features`` on
+  both views with the previous push's features kept, the temporal motion
+  (K1), the transport into the stitched frame (zero on the stream's first
+  frame, chosen on the device by ``torch.where`` from a flag), the
+  window's roll buffers and ``SmoothNet`` on the one window. The stream's
+  state (features, motion, buffers, flag) lives in tensors that the step
+  updates in place (the JAX step returns new ones). With the stitcher's
+  ``fused_motion`` (the default) the step goes through a
+  ``utils/graphs.py:GraphCache`` of its own: on a card one CUDA graph per
+  input shape and format, captured at the first push and replayed by one
+  launch at every later one (on the CPU the step runs directly);
+  ``fused_motion=False`` runs it eagerly. The composite and its one fetch
+  stay outside, as the JAX package's "plus one composite dispatch" does;
 - nothing is emitted for the first ``window - 1`` pushes; the push that
   fills the window composites all of its frames in one batch, and every
   later push composites the window's last frame;
@@ -37,7 +47,7 @@ from stabstitch2_tpu_torch.data.video_io import pack_i420_host
 from stabstitch2_tpu_torch.models.smooth import smooth_outputs
 from stabstitch2_tpu_torch.models.spatial import spatial_motions
 from stabstitch2_tpu_torch.ops.mesh import rigid_mesh
-from stabstitch2_tpu_torch.ops.yuv import bgr_u8_to_yuv420
+from stabstitch2_tpu_torch.ops.yuv import bgr_u8_to_yuv420, unpack_i420_u8
 from stabstitch2_tpu_torch.pipeline.compositor import (Canvas,
                                                        chains_yuv420,
                                                        composite_chunk,
@@ -45,6 +55,7 @@ from stabstitch2_tpu_torch.pipeline.compositor import (Canvas,
                                                        scale_meshes)
 from stabstitch2_tpu_torch.pipeline.stitcher import model_input
 from stabstitch2_tpu_torch.pipeline.transport import transport
+from stabstitch2_tpu_torch.utils.graphs import GraphCache
 from stabstitch2_tpu_torch.utils.transfer import constant
 
 
@@ -84,11 +95,21 @@ class OnlineStitcher:
             self.cfg, "yuv420" if emit_format == "i420" else "bgr")
         self.mh, self.mw = stitcher.model_h, stitcher.model_w
         self._rigid = rigid_mesh(self.mh, self.mw, device=self.device)
-        # the trunk's output [2, ceil(mh/8), ceil(mw/8), 128], in its
-        # compute dtype (each stride-2 stage halves with a ceil)
-        self._feat_shape = (2, -(-self.mh // 8), -(-self.mw // 8), 128)
-        self._feat_dtype = (stitcher.temporal_net.feature_extractor_stage1
-                            .compute_dtype)
+        # the stream's state, updated in place by the step (a captured
+        # step reads and writes these very tensors): the previous push's
+        # features (the trunk's output [2, ceil(mh/8), ceil(mw/8), 128] in
+        # its compute dtype; each stride-2 stage halves with a ceil) and
+        # spatial motions, the roll buffers [view, window, GH+1, GW+1, 2]
+        # and the first-frame flag
+        dev, mesh = self.device, self._rigid.shape
+        self._prev_feat = torch.zeros(
+            (2, -(-self.mh // 8), -(-self.mw // 8), 128), device=dev,
+            dtype=stitcher.temporal_net.feature_extractor_stage1.compute_dtype)
+        self._prev_smotion = torch.zeros((2, *mesh), device=dev)
+        self._buf_smesh = torch.zeros((2, self.cfg.window, *mesh), device=dev)
+        self._buf_ts = torch.zeros_like(self._buf_smesh)
+        self._first = torch.zeros((), dtype=torch.bool, device=dev)
+        self.graphs = GraphCache() if stitcher.fused_motion else None
         # host waits for the card (each on an event after page-locked
         # copies); a push in steady state makes one
         self.waits = 0
@@ -97,13 +118,9 @@ class OnlineStitcher:
     def reset(self) -> None:
         """Forget the stream: the next push is its first frame."""
         self._t = 0
-        self._prev_feat = torch.zeros(self._feat_shape, dtype=self._feat_dtype,
-                                      device=self.device)
-        self._prev_smotion: Optional[torch.Tensor] = None
-        zbuf = torch.zeros((2, self.cfg.window, *self._rigid.shape),
-                           device=self.device)
-        self._buf_smesh = zbuf      # [view, window, GH+1, GW+1, 2]
-        self._buf_ts = zbuf
+        for state in (self._prev_feat, self._prev_smotion, self._buf_smesh,
+                      self._buf_ts):
+            state.zero_()
         self._pending: List[torch.Tensor] = []   # device BGR pairs
         self.canvas: Optional[Canvas] = None
         self._offset: Optional[torch.Tensor] = None
@@ -222,6 +239,40 @@ class OnlineStitcher:
 
     # -- the stream ----------------------------------------------------------
 
+    def _step(self, frames: torch.Tensor):
+        """One push's motion and smoothing on the device, the port of the
+        JAX package's ``_step``: ``frames`` [2, H, W, 3] BGR or packed I420
+        [2, H*3//2, W] uint8 -> (the BGR pair, the window's smooth meshes of
+        view 1 and view 2 [window, GH+1, GW+1, 2]); the state tensors are
+        updated in place. Reads nothing from the host, so that it can be
+        captured: the first frame's zero trajectory is a ``torch.where`` on
+        the device flag ``_first``."""
+        s, mh, mw = self.s, self.mh, self.mw
+        pair = unpack_i420_u8(frames) if frames.dim() == 3 else frames
+        lo = model_input(pair, mh, mw)
+        off, mref, mtgt = s.spatial_net(lo[0:1], lo[1:2])
+        sp = spatial_motions(off, mref, mtgt, mh, mw)
+        smotion = torch.cat([sp["motion1"], sp["motion2"]])   # [view, ...]
+        feat = s.temporal_net.features(lo)
+        tmotion = s.temporal_net.motion_from_features(self._prev_feat, feat)
+        # the first frame has no predecessor: its trajectory is zero (the
+        # transport runs anyway, from the rigid mesh, as in the JAX step)
+        ts = torch.where(self._first, 0.0,
+                         transport(tmotion, self._prev_smotion, smotion,
+                                   mh, mw))
+        self._prev_feat.copy_(feat)
+        self._prev_smotion.copy_(smotion)
+        self._buf_smesh.copy_(torch.cat(
+            [self._buf_smesh[:, 1:], (self._rigid + smotion)[:, None]], 1))
+        self._buf_ts.copy_(torch.cat([self._buf_ts[:, 1:], ts[:, None]], 1))
+        # each window's first trajectory is zero (it re-bases there)
+        ts_w = self._buf_ts.clone()
+        ts_w[:, 0] = 0.0
+        d = smooth_outputs(s.smooth_net(self._buf_smesh[0:1],
+                                        self._buf_smesh[1:2],
+                                        ts_w[0:1], ts_w[1:2]))
+        return pair, d["smooth_mesh1"][0], d["smooth_mesh2"][0]
+
     @torch.no_grad()
     def push(self, hi1: np.ndarray, hi2: np.ndarray) -> List[np.ndarray]:
         """Feed one synchronized frame pair; returns the panoramas that
@@ -232,33 +283,20 @@ class OnlineStitcher:
         """
         check_frame("hi1", hi1)
         check_frame("hi2", hi2)
-        s, mh, mw = self.s, self.mh, self.mw
-        pair = s.upload_frames(np.stack([hi1, hi2]), [])      # [2, H, W, 3]
-        lo = model_input(pair, mh, mw)
-        off, mref, mtgt = s.spatial_net(lo[0:1], lo[1:2])
-        sp = spatial_motions(off, mref, mtgt, mh, mw)
-        smotion = torch.cat([sp["motion1"], sp["motion2"]])   # [view, ...]
-        feat = s.temporal_net.features(lo)
-        tmotion = s.temporal_net.motion_from_features(self._prev_feat, feat)
-        # the first frame has no predecessor: its trajectory is zero
-        ts = (torch.zeros_like(smotion) if self._t == 0 else
-              transport(tmotion, self._prev_smotion, smotion, mh, mw))
-        self._prev_feat, self._prev_smotion = feat, smotion
-        self._buf_smesh = torch.cat(
-            [self._buf_smesh[:, 1:], (self._rigid + smotion)[:, None]], 1)
-        self._buf_ts = torch.cat([self._buf_ts[:, 1:], ts[:, None]], 1)
+        s = self.s
+        frames = s.upload(np.stack([hi1, hi2]), np.uint8, [])
+        self._first.fill_(self._t == 0)
+        if self.graphs is None:
+            pair, sm1w, sm2w = self._step(frames)
+        else:
+            pair, sm1w, sm2w = self.graphs.run(
+                "online_step", self._step, frames,
+                modules=(s.spatial_net, s.temporal_net, s.smooth_net))
         self._pending.append(pair)
         self._t += 1
         window = self.cfg.window
         if self._t < window:
             return []
-        # each window's first trajectory is zero (it re-bases there)
-        ts_w = self._buf_ts.clone()
-        ts_w[:, 0] = 0.0
-        d = smooth_outputs(s.smooth_net(self._buf_smesh[0:1],
-                                        self._buf_smesh[1:2],
-                                        ts_w[0:1], ts_w[1:2]))
-        sm1w, sm2w = d["smooth_mesh1"][0], d["smooth_mesh2"][0]
         self.window_smooth = (sm1w, sm2w)
         if self._t == window:       # the first window, in one batch
             pairs = torch.stack(self._pending)

@@ -15,6 +15,20 @@ which wait only for their own chunk's copy: later copies run beside
 earlier chunks' kernels. Both run the motion nets on the same chunks
 (``pipeline/motion.py``) and give the same bits.
 
+``fused_motion`` (the default, as in the JAX package) runs phases 1-4 of
+the bulk paths (``stitch_begin`` in bulk upload, :meth:`VideoStitcher.
+motion_smooth`, which the N-view chain and the metric harness call) as
+captured programs (``utils/graphs.py``): per motion chunk the spatial
+motion with the temporal features, per pair chunk the temporal motion,
+each at the one chunk shape, and transport with the smoothing of every
+window as one program per 16-frame bucket, padded by repeating the last
+frame and cropped (exact: frame t's smooth mesh depends on frames <= t
+only). On a card each is a CUDA graph, captured at its first shape and
+replayed; on the CPU the same functions run directly. ``fused_motion=
+False`` (``cli --eager_motion``) runs them eagerly at the true sizes;
+where T is a multiple of 16 and of the chunk the two give the same bits.
+``upload_mode`` 'stream' keeps its eager per-chunk interleave either way.
+
 On several devices (``init_stitcher(n_devices=N)``, the JAX package's
 data-parallel inference) one process deals the chunks round-robin: chunk
 k of the upload, the motion nets and the composite runs on device k mod
@@ -53,14 +67,20 @@ from stabstitch2_tpu_torch.pipeline.compositor import (Canvas,
                                                        composite_finish)
 from stabstitch2_tpu_torch.parallel.devices import (resolve_device,
                                                     resolve_devices)
-from stabstitch2_tpu_torch.pipeline.motion import Frames, MotionEstimator
+from stabstitch2_tpu_torch.pipeline.motion import (Frames, MotionEstimator,
+                                                   pad_to)
 from stabstitch2_tpu_torch.pipeline.smoothing import smooth_all_windows
 from stabstitch2_tpu_torch.pipeline.transport import (
     stitched_meshes,
     transport_both_views,
 )
+from stabstitch2_tpu_torch.utils.graphs import GraphCache
 from stabstitch2_tpu_torch.utils.profiling import PhaseTimer, annotate
 from stabstitch2_tpu_torch.utils.transfer import pinned
+
+
+# the frame bucket of the captured smoothing program, as the JAX package's
+SMOOTH_BUCKET = 16
 
 
 @dataclasses.dataclass
@@ -133,6 +153,11 @@ class VideoStitcher:
     # (``init_stitcher(n_devices=N)``); None: ``device`` alone. The nets
     # above live on the first; the others hold copies of the motion nets.
     devices: Optional[List[torch.device]] = None
+    # True: phases 1-4 of the bulk paths as captured programs, one CUDA
+    # graph per program and shape on a card (``graphs``); the phase marks
+    # 'spatial' and 'temporal' then take no wait and the time goes to
+    # 'smooth'. False: eager, with the per-phase attribution.
+    fused_motion: bool = True
 
     def __post_init__(self):
         if self.devices:
@@ -150,11 +175,13 @@ class VideoStitcher:
         """Give each device its replica of the motion nets as they are now:
         the nets themselves on the first device, copies on the others.
         With several devices, call it again after loading weights into the
-        nets (``utils/checkpoint.py:stitcher_from_checkpoint`` does)."""
+        nets (``utils/checkpoint.py:stitcher_from_checkpoint`` does). The
+        captured programs (``graphs``) are dropped with the old copies."""
         nets = (self.spatial_net, self.temporal_net)
         self._motion = MotionEstimator(
             [nets] + [tuple(copy.deepcopy(net).to(d).eval() for net in nets)
                       for d in self.devices[1:]], chunk=self.chunk)
+        self.graphs = GraphCache()
 
     def stitch_arrays(self, hi1: np.ndarray, lo1: Optional[np.ndarray],
                       hi2: np.ndarray, lo2: Optional[np.ndarray]
@@ -288,10 +315,9 @@ class VideoStitcher:
                 frames1.append(a)
                 frames2.append(b)
                 l1, l2 = model_input(a, mh, mw), model_input(b, mh, mw)
-                m1, m2 = motion.spatial_chunk(l1, l2, k)
+                m1, m2, g1, g2 = motion.motion_chunk(l1, l2, k)
                 sm1.append(m1)
                 sm2.append(m2)
-                g1, g2 = motion.features_chunk(l1, l2, k)
                 f1.append(g1)
                 f2.append(g2)
         timer.mark("spatial")
@@ -299,7 +325,7 @@ class VideoStitcher:
             tmotion = motion.temporal_from_features(f1, f2)
         timer.mark("temporal")
         smooth = self._smooth(motion.gather(sm1), motion.gather(sm2),
-                              *tmotion, timer)
+                              *tmotion, timer, None)
         return frames1, frames2, smooth
 
     def upload(self, x: np.ndarray, dtype, staging: List[torch.Tensor],
@@ -367,32 +393,59 @@ class VideoStitcher:
         every window for model inputs [T, mh, mw, 3] in [-1, 1] (tensors
         on the first device, or chunk lists): the dict of
         :func:`smooth_all_windows` (per-frame smooth and original meshes,
-        per-window paths) on the first device. Runs at the true T, with
-        no waits; ``timer`` marks the phases ``spatial``, ``temporal`` and
-        ``smooth``."""
+        per-window paths) on the first device, each a tensor of its own.
+        With ``fused_motion`` the programs run at the chunk shape and the
+        16-frame bucket (captured on a card), else eagerly at the true T;
+        no waits either way. ``timer`` marks the phases ``spatial`` (the
+        spatial motion and the temporal features), ``temporal`` and
+        ``smooth``; with ``fused_motion`` only ``smooth`` waits."""
         motion = self._motion
+        graphs = self.graphs if self.fused_motion else None
         c1, c2 = motion.split(l1), motion.split(l2)
         with annotate("spatial"):
-            smotion1, smotion2 = motion.spatial(c1, c2)
+            m1, m2, f1, f2 = zip(*(motion.motion_chunk(a, b, k, graphs)
+                                   for k, (a, b) in enumerate(zip(c1, c2))))
+            smotion1, smotion2 = motion.gather(m1), motion.gather(m2)
         if timer is not None:
-            timer.mark("spatial")
+            timer.mark("spatial", sync=graphs is None)
         with annotate("temporal"):
-            tmotion1, tmotion2 = motion.temporal_pair(c1, c2)
+            tmotion1, tmotion2 = motion.temporal_from_features(f1, f2, graphs)
         if timer is not None:
-            timer.mark("temporal")
-        return self._smooth(smotion1, smotion2, tmotion1, tmotion2, timer)
+            timer.mark("temporal", sync=graphs is None)
+        return self._smooth(smotion1, smotion2, tmotion1, tmotion2, timer,
+                            graphs)
 
     def _smooth(self, smotion1, smotion2, tmotion1, tmotion2,
-                timer: Optional[PhaseTimer]) -> Dict[str, torch.Tensor]:
-        """Transport and the smoothing of every window (phase 'smooth')."""
-        mh, mw = self.model_h, self.model_w
+                timer: Optional[PhaseTimer], graphs: Optional[GraphCache]
+                ) -> Dict[str, torch.Tensor]:
+        """Transport and the smoothing of every window (phase 'smooth'):
+        eagerly without ``graphs``; else one program per 16-frame bucket
+        through ``graphs``, the motions padded by repeating the last frame
+        and the outputs cropped to T frames (T - window + 1 windows)."""
+        mh, mw, window = self.model_h, self.model_w, self.config.window
+
+        def program(tm1, sm1, tm2, sm2):
+            ts1, ts2 = transport_both_views(tm1, sm1, tm2, sm2, mh, mw)
+            return smooth_all_windows(self.smooth_net,
+                                      stitched_meshes(sm1, mh, mw),
+                                      stitched_meshes(sm2, mh, mw),
+                                      ts1, ts2, window=window)
+
         with annotate("smooth"):
-            ts1, ts2 = transport_both_views(tmotion1, smotion1, tmotion2,
-                                            smotion2, mh, mw)
-            smooth = smooth_all_windows(self.smooth_net,
-                                        stitched_meshes(smotion1, mh, mw),
-                                        stitched_meshes(smotion2, mh, mw),
-                                        ts1, ts2, window=self.config.window)
+            motions = (tmotion1, smotion1, tmotion2, smotion2)
+            if graphs is None:
+                smooth = program(*motions)
+            else:
+                T = smotion1.shape[0]
+                if T < window:      # the pad would hide it
+                    raise ValueError(f"need at least {window} frames, got "
+                                     f"{T}")
+                Tb = -(-T // SMOOTH_BUCKET) * SMOOTH_BUCKET
+                smooth = graphs.run(f"smooth_w{window}", program,
+                                    *(pad_to(x, Tb) for x in motions),
+                                    modules=(self.smooth_net,))
+                smooth = {k: v[:T - window + 1] if k.startswith("win_")
+                          else v[:T] for k, v in smooth.items()}
         if timer is not None:
             timer.mark("smooth")
         return smooth

@@ -11,6 +11,8 @@ only after the copy has completed; on the CPU nothing is staged.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -30,3 +32,27 @@ def constant(data, dtype: torch.dtype, device) -> torch.Tensor:
     """``torch.tensor(data, dtype=dtype, device=device)`` without blocking
     the host."""
     return to_device(torch.tensor(data, dtype=dtype), device or "cpu")
+
+
+@functools.lru_cache(maxsize=None)   # never evicts: a graph may read it
+def _shape_constant(data: tuple, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    return constant(data, dtype, device)
+
+
+def _frozen(data):
+    return tuple(_frozen(x) for x in data) if isinstance(
+        data, (list, tuple)) else float(data)
+
+
+def shape_constant(data, dtype: torch.dtype, device) -> torch.Tensor:
+    """:func:`constant` for values fixed by integer sizes (mesh scales,
+    corner points, the homography's normalization at a model or feature
+    size), made once per value, dtype and device and kept for the life of
+    the process; read-only. A program captured as a CUDA graph
+    (``utils/graphs.py``) may read it: it copies nothing from the host
+    there, since the eager first call made it, and it is never freed
+    while the graph may still read it. Values that vary from call to call
+    (a canvas's extent) take :func:`constant`."""
+    return _shape_constant(_frozen(data), dtype,
+                           torch.device(device or "cpu"))

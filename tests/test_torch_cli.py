@@ -6,9 +6,11 @@ the same values, ``--n_devices`` among them (the four stitcher commands
 and ``train``). The JAX CLI keeps the transfer formats None and resolves
 them per command when it runs (``stabstitch2_tpu/cli.py:_build_stitcher``,
 ``cmd_metric``); the port's parser holds the resolved values, so JAX's
-None is read as its resolution. Flags left out of the port by design
-(``--ckpt_dir``, ``--fused_motion``, ``--eager_motion``, ``convert``) are
-not shared keys.
+None is read as its resolution. ``--fused_motion`` (the default, accepted)
+and ``--eager_motion`` are shared keys of the four stitcher commands, and
+the port's ``build_stitcher`` applies ``--eager_motion`` as JAX's
+``_build_stitcher`` does. Flags left out of the port by design
+(``--ckpt_dir``, ``convert``) are not shared keys.
 """
 
 import pytest
@@ -54,13 +56,32 @@ def shared(j, t, cmd):
 
 
 @pytest.mark.parametrize("cmd", list(ARGV))
-@pytest.mark.parametrize("extra", [[], ["--trace_dir", "traces"], FLAGS])
+@pytest.mark.parametrize("extra", [[], ["--trace_dir", "traces"], FLAGS,
+                                   ["--eager_motion"], ["--fused_motion"]])
 def test_jax_argv_parses_the_same(cmd, extra, monkeypatch):
     argv = ARGV[cmd] + extra
     j, t = shared(jax_args(argv, monkeypatch),
                   vars(cli.make_parser().parse_args(argv)), cmd)
-    assert j == t and "trace_dir" in j
+    assert j == t and {"trace_dir", "fused_motion", "eager_motion"} <= set(j)
     assert t["trace_dir"] == ("traces" if "--trace_dir" in extra else None)
+    assert t["eager_motion"] == ("--eager_motion" in extra)
+
+
+@pytest.mark.parametrize("extra", [[], ["--fused_motion"], ["--eager_motion"]])
+def test_eager_motion_builds_an_eager_stitcher(extra, monkeypatch):
+    """``build_stitcher`` sets ``fused_motion`` as JAX's ``_build_stitcher``
+    does: off with ``--eager_motion``, on otherwise."""
+    import stabstitch2_tpu_torch.utils.checkpoint as ckpt
+
+    class Stub:
+        fused_motion = True
+
+    monkeypatch.setattr(ckpt, "stitcher_from_checkpoint",
+                        lambda **kw: Stub())
+    args = cli.make_parser().parse_args(ARGV["stitch"] + extra
+                                        + ["--device", "cpu"])
+    assert cli.build_stitcher(args).fused_motion == (extra != [
+        "--eager_motion"])
 
 
 @pytest.mark.parametrize("extra", [[], ["--n_devices", "2"]])

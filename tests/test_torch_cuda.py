@@ -14,7 +14,12 @@ the same device routine, so K3 + K4 give K2's planes exactly). K3's
 a spatial training step on the card is held against the CPU at 1e-4
 (loss) and 1e-2 (each gradient, relative L2). Two replicas of the
 stitcher on one card equal one bit for bit; each kernel's wrapper runs
-on the last card where there are two or more (skipped on one).
+on the last card where there are two or more (skipped on one). The fused
+motion's CUDA graphs (``utils/graphs.py``) replay the eager functions bit
+for bit on 48-frame clips (a multiple of the chunk and of the 16-frame
+bucket), count the launches the eager path makes, leave a begun video's
+meshes alone, are made anew by ``replicate()``, and raise on a capture
+that waits for the card.
 """
 
 import numpy as np
@@ -353,7 +358,12 @@ def test_begun_video_survives_the_next_begin(cuda_device):
 def test_stream_upload_equals_bulk_two_deep(cuda_device, packed):
     """``upload_mode="stream"`` (copies on the copy stream, one event per
     chunk) with two videos begun before either is finished: each gives
-    the bulk upload's frames and meshes bit for bit, with a tail chunk."""
+    the bulk upload's frames and meshes bit for bit, with a tail chunk.
+    Stream runs the motion eagerly, so the bulk reference is the eager
+    one (``fused_motion=False``): the fused bulk pads the tail chunk and
+    the 16-frame bucket, where the kernels may take other algorithms."""
+    import dataclasses
+
     from stabstitch2_tpu_torch.data.video_io import bgr_to_i420
     from synthetic import make_two_view_clip
 
@@ -364,7 +374,8 @@ def test_stream_upload_equals_bulk_two_deep(cuda_device, packed):
         v = make_two_view_clip(num_frames=10, height=128, width=160,
                                overlap=0.6, shake_px=2.0, seed=s)
         clips.append(tuple(bgr_to_i420(x) for x in v) if packed else v)
-    refs = [st.stitch_arrays(a, None, b, None) for a, b in clips]
+    eager = dataclasses.replace(st, fused_motion=False)
+    refs = [eager.stitch_arrays(a, None, b, None) for a, b in clips]
     st.upload_mode = "stream"
     pending = [st.stitch_begin(a, None, b, None) for a, b in clips]
     for p, ref in zip(pending, refs):
@@ -613,3 +624,192 @@ def test_kernels_on_the_last_card(cuda_device):
     ref = patch_gather_cuda.patch_gather_plain(im, x, y, out_size, False)
     assert got[0].device == last
     torch.testing.assert_close(got[0], ref[0], atol=0, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the fused motion's CUDA graphs (utils/graphs.py)
+# ---------------------------------------------------------------------------
+
+GRAPH_T = 48
+
+
+def _graph_stitchers(device, **kw):
+    """A stitcher at the defaults (bf16, yuv420 download) at 128x160 with
+    chunk 8, fused (the default), and an eager one on the same nets."""
+    import dataclasses
+
+    st = init_stitcher(0, StitchConfig(download_format="yuv420"),
+                       model_h=128, model_w=160, device=device, **kw)
+    assert st.fused_motion
+    return st, dataclasses.replace(st, fused_motion=False)
+
+
+def _graph_clip(seed=5, T=GRAPH_T):
+    from synthetic import make_two_view_clip
+
+    return make_two_view_clip(num_frames=T, height=128, width=160,
+                              overlap=0.6, shake_px=2.0, seed=seed)
+
+
+def _assert_same_stitch(a, b):
+    np.testing.assert_array_equal(a.frames, b.frames)
+    for k in ("smooth_mesh1", "smooth_mesh2", "ori_mesh1", "ori_mesh2"):
+        torch.testing.assert_close(getattr(a, k), getattr(b, k), atol=0,
+                                   rtol=0)
+
+
+def test_graph_replays_equal_eager(cuda_device):
+    """stitch_begin/finish and motion_smooth replayed from their graphs
+    give the eager functions' meshes and frames bit for bit on a 48-frame
+    clip; a program's first call at a shape runs eagerly and captures it,
+    every later call (the next chunk's too) replays it."""
+    from stabstitch2_tpu_torch.pipeline.stitcher import model_input
+
+    st, eager = _graph_stitchers(cuda_device)
+    v1, v2 = _graph_clip()
+    ref = eager.stitch_arrays(v1, None, v2, None)
+    first = st.stitch_arrays(v1, None, v2, None)
+    # motion, pair and smooth captured; chunks 1-5 of 6 replayed
+    assert st.graphs.captures == 3 and st.graphs.replays == 10
+    again = st.stitch_arrays(v1, None, v2, None)
+    assert st.graphs.captures == 3 and st.graphs.replays == 10 + 13
+    for res in (first, again):
+        _assert_same_stitch(res, ref)
+    l1, l2 = (model_input(torch.from_numpy(v).to(cuda_device), 128, 160)
+              for v in (v1, v2))
+    want = eager.motion_smooth(l1, l2)
+    got = st.motion_smooth(l1, l2)
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        torch.testing.assert_close(got[k], v, atol=0, rtol=0)
+
+
+def test_online_graph_replays_equal_eager(cuda_device):
+    """48 pushes through the captured online step equal the eager step's
+    meshes and frames bit for bit; each push after the first replays."""
+    from stabstitch2_tpu_torch.pipeline.online import OnlineStitcher
+
+    st, eager = _graph_stitchers(cuda_device)
+    v1, v2 = _graph_clip(seed=6)
+    fused, plain = OnlineStitcher(st), OnlineStitcher(eager)
+    assert fused.graphs is not None and plain.graphs is None
+    for t, (a, b) in enumerate(zip(v1, v2)):
+        got, want = fused.push(a, b), plain.push(a, b)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        if want:
+            for g, w in zip(fused.window_smooth, plain.window_smooth):
+                torch.testing.assert_close(g, w, atol=0, rtol=0)
+    assert fused.graphs.captures == 1
+    assert fused.graphs.replays == GRAPH_T - 1
+
+
+def test_begun_video_meshes_survive_the_next_fused_begin(cuda_device):
+    """The two-deep loop begins video k+1 before video k's result is read:
+    the replays of k+1 leave k's meshes (copied out of the graphs' static
+    outputs) as they were."""
+    st, eager = _graph_stitchers(cuda_device)
+    clips = [_graph_clip(seed=s) for s in (5, 6)]
+    refs = [eager.stitch_arrays(a, None, b, None) for a, b in clips]
+    st.stitch_arrays(clips[1][0], None, clips[1][1], None)   # captures
+    pending = st.stitch_begin(clips[0][0], None, clips[0][1], None)
+    kept = {k: v.clone() for k, v in pending.smooth.items()}
+    nxt = st.stitch_begin(clips[1][0], None, clips[1][1], None)
+    torch.cuda.synchronize()
+    for k, v in kept.items():
+        torch.testing.assert_close(pending.smooth[k], v, atol=0, rtol=0)
+    for p, ref in zip((pending, nxt), refs):
+        _assert_same_stitch(st.stitch_finish(p), ref)
+
+
+def test_replicate_makes_new_graphs(cuda_device):
+    st, _ = _graph_stitchers(cuda_device)
+    v1, v2 = _graph_clip(T=16)
+    st.stitch_arrays(v1, None, v2, None)
+    old = st.graphs
+    assert len(old) == 3
+    replays = old.replays
+    st.replicate()
+    assert st.graphs is not old and len(st.graphs) == 0
+    st.stitch_arrays(v1, None, v2, None)
+    assert st.graphs.captures == 3 and old.replays == replays
+
+
+def test_graph_launch_counts_equal_eager(cuda_device):
+    """K1's (and K2's) launches per stitch are the eager path's: a capture
+    counts none, each replay what the capture recorded."""
+    st, eager = _graph_stitchers(cuda_device)
+    v1, v2 = _graph_clip()
+
+    def counted(s):
+        corr_cuda.LAUNCHES.clear()
+        fused_warp_cuda.LAUNCHES.clear()
+        s.stitch_arrays(v1, None, v2, None)
+        return (dict(corr_cuda.LAUNCHES), dict(fused_warp_cuda.LAUNCHES))
+
+    want = counted(eager)
+    assert want[0] == {5: 12, 3: 6}
+    first = counted(st)         # chunk 0 eager and captured, 1-5 replayed
+    replayed = dict(st.graphs.replayed)
+    again = counted(st)         # all replayed
+    assert first == want and again == want
+    assert replayed == {"cost_volume_r5": 10, "cost_volume_r3": 5}
+    assert dict(st.graphs.replayed) == {"cost_volume_r5": 22,
+                                        "cost_volume_r3": 11}
+
+
+def test_trace_dir_captures_inside_the_profiler(cuda_device, tmp_path):
+    """``cli stitch --trace_dir`` on a fresh stitcher: the first video's
+    graphs are captured while torch.profiler traces, the second replays
+    them; both traces name K1, and the frames equal the eager path's."""
+    import glob
+    import os
+
+    from stabstitch2_tpu_torch import cli
+    from synthetic import write_clip_dirs
+
+    for seed in (0, 1):
+        write_clip_dirs(str(tmp_path / "data"), num_frames=16, height=128,
+                        width=160, seed=seed, video_name=f"clip{seed}")
+    videos = sorted(glob.glob(str(tmp_path / "data" / "clip*")))
+    st, eager = _graph_stitchers(cuda_device)
+    got, want = {}, {}
+    d = str(tmp_path / "traces")
+    done, failed = cli.stitch_stream(st, cli.load_videos(videos),
+                                     got.__setitem__, trace_dir=d)
+    assert (done, failed) == (2, 0) and st.graphs.replays > 0
+    cli.stitch_stream(eager, cli.load_videos(videos), want.__setitem__)
+    for name, r in want.items():
+        np.testing.assert_array_equal(got[name].frames, r.frames)
+    files = sorted(glob.glob(os.path.join(d, "*.json")))
+    assert len(files) == 2
+    for f in files:
+        with open(f) as fh:
+            assert "cost_volume_kernel" in fh.read(), f
+
+
+def test_capture_that_waits_raises(cuda_device):
+    """A planted ``.item()`` inside a captured function: the first call
+    runs it eagerly, then its capture raises and no graph is kept; the
+    next call raises too rather than run eagerly. (After a failed capture
+    the card's state is not to be trusted: on the H100 the next call
+    raised before its eager run finished. So a failure ends the run, and
+    this test comes last.)"""
+    from stabstitch2_tpu_torch.utils.graphs import GraphCache
+
+    ran = []
+
+    def planted(x):
+        ran.append(1)
+        return x * float(x.sum().item())
+
+    cache = GraphCache()
+    x = torch.ones(4, device=cuda_device)
+    with pytest.raises(RuntimeError):
+        cache.run("planted", planted, x)
+    assert len(ran) == 2          # the eager run, then the capture
+    assert len(cache) == 0 and cache.captures == 0
+    with pytest.raises(RuntimeError):
+        cache.run("planted", planted, x)
+    assert len(cache) == 0 and cache.captures == 0
