@@ -112,18 +112,31 @@ Phases, each printing one JSON line with its seconds:
 14. ``train``: the training path through ``cli.main`` at full width and
     batch 8, float32: ``train spatial`` (ssd), ``train temporal``,
     ``export-motions --which both`` with the two trained nets, ``train
-    smooth``, each TRAIN_STEPS steps on TRAIN_VIDEOS jpg clips of
-    TRAIN_FRAMES frames at 360x480, then ``cli stitch`` of one clip with
-    the trained triad through ``--reference_pth_dir``; per stage the step
-    ms, peak memory and K1/K3 launches per step, and a trace of the last
-    step (the card's idle share, the top device operations), with gates
-    on those launches, finite losses and moved parameters and BatchNorm
-    statistics. Before it, the gradient gate: one spatial step at B=2,
-    128x160 on the card against the CPU (loss, every gradient, the TPS
-    term reaching the mesh head), which a planted fault (K3's
-    coordinates detached) must fail. After it, ``TpsCoords``' gradients
-    against autograd through the plain version on the recorded inputs
-    (``phase_train``).
+    smooth``, each TRAIN_STEPS steps in TRAIN_EPOCHS epochs (the rate's
+    staircase moves) on TRAIN_VIDEOS jpg clips of TRAIN_FRAMES frames at
+    360x480, then ``cli stitch`` of one clip with the trained triad
+    through ``--reference_pth_dir``. Each stage runs with its step
+    captured as one CUDA graph (the default) and, in turns, through the
+    same command with ``capture_step=False`` (the eager step): twice each
+    at the default algorithms (times, traces), then with PyTorch's and
+    cuDNN's deterministic ones twice captured and five times eager, then twice
+    more captured with a planted fault each (a replay that skips the
+    copy of the new batch, a rate baked in at capture). Per stage,
+    captured against eager: the step ms, the capture seconds, replays
+    and replayed launches per step, peak memory allocated and reserved,
+    K1/K3 launches per step and a trace of the last step (a replay where
+    captured: the card's idle share, the top device operations); gates
+    on one capture and TRAIN_STEPS - 1 replays, those launches, the last
+    update's rate, finite losses, moved parameters and BatchNorm
+    statistics, and the deterministic captured runs' losses, parameters,
+    statistics and last rate against the eager runs' (bit for bit where
+    the eager runs are, else within CAPTURE_SPREAD_FACTOR times their
+    spread), which each planted fault must fail (``captured_gate``).
+    Before it, the gradient gate: one spatial step at B=2, 128x160 on
+    the card against the CPU (loss, every gradient, the TPS term reaching
+    the mesh head), which a planted fault (K3's coordinates detached)
+    must fail. After it, ``TpsCoords``' gradients against autograd
+    through the plain version on the recorded inputs (``phase_train``).
 
 15. ``devices``: multi-device (``stabstitch2_tpu_torch/parallel/``).
     ``cli stitch`` at its defaults through ``cli.build_stitcher`` and
@@ -164,6 +177,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import glob
 import json
 import os
@@ -237,10 +251,15 @@ HELD_PER_KERNEL = 3
 METRIC_RTOL = 1e-4
 # the train phase: TRAIN_VIDEOS jpg clips of TRAIN_FRAMES frames at
 # 360x480 (12-frame smooth windows: 11 per clip, 4 batches), each stage
-# TRAIN_STEPS steps at the presets' batch of 8, the last one traced
+# TRAIN_STEPS steps in TRAIN_EPOCHS epochs at the presets' batch of 8
 TRAIN_VIDEOS = 3
 TRAIN_FRAMES = 22
 TRAIN_STEPS = 4
+TRAIN_EPOCHS = 2
+# the captured step against the eager one: where two eager runs differ
+# (atomics in the backwards), a captured run lies within this many times
+# the eager runs' spread of the nearest eager run (captured_gate)
+CAPTURE_SPREAD_FACTOR = 2
 # the gradient gate, one spatial step at B=2, 128x160, card against CPU:
 # the loss, and every parameter's gradient in relative L2. The second is
 # float32-conditioned: on the CPU the JAX package's and the port's trunk
@@ -2133,12 +2152,39 @@ def train_grad_gate(device) -> dict:
                                   "loss": loss_f}}
 
 
+def graphed_ms(fn, iters: int = 5) -> list:
+    """Device ms of ``fn`` captured as one CUDA graph, per replay (CUDA
+    events around each): what its kernels cost the card without the
+    host's dispatch."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    out = []
+    for _ in range(iters):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return out
+
+
 def tps_grads_held(held) -> list:
     """K3's ``TpsCoords`` gradients against autograd through
     ``tps_coords_plain`` on the recorded train inputs, with seeded
     cotangents: equal, since the backward is that autograd. Also the
-    host-clock ms of that backward (3 runs, each between two waits). Its
-    own launches are taken off the count again."""
+    host-clock ms of that backward (3 runs, each between two waits) and
+    its device ms, the same autograd captured as one graph
+    (:func:`graphed_ms`). Its own launches are taken off the count
+    again."""
     import torch
 
     from stabstitch2_tpu_torch.ops import tps_coords_cuda
@@ -2169,12 +2215,21 @@ def tps_grads_held(held) -> list:
             torch.autograd.backward((xs, ys), cot)
             torch.cuda.synchronize()
             backward_ms.append(1e3 * (time.perf_counter() - t0))
+        T, src = (a.clone().requires_grad_(True) for a in args[:2])
+
+        def plain_backward():
+            xs, ys = tps_coords_cuda.tps_coords_plain(T, src, *args[2:],
+                                                      **kwargs)
+            return torch.autograd.grad((xs, ys), (T, src), cot)
+
         equal = all(torch.equal(a, b) for a, b in zip(*grads))
         err = max(float((a - b).abs().max()) for a, b in zip(*grads))
         rows.append({"shapes": [list(args[0].shape), list(args[1].shape)],
                      "out_size": list(args[2]), "grad_fn": fns[0],
                      "grads_equal": equal, "max_abs_err": err,
-                     "backward_ms": backward_ms})
+                     "backward_ms": backward_ms,
+                     "plain_forward_and_backward_device_ms":
+                         graphed_ms(plain_backward)})
         require(equal, f"TpsCoords gradients vs plain autograd: {err}")
     tps_coords_cuda.LAUNCHES.clear()
     tps_coords_cuda.LAUNCHES.update(launches)
@@ -2183,7 +2238,7 @@ def tps_grads_held(held) -> list:
 
 def stage_recorder(net_steps: dict):
     """An ``on_step`` hook that waits for the card after each step and
-    records the host time, the peak memory and the kernels' counts."""
+    records the host time, the loss terms and the kernels' counts."""
     import torch
 
     from stabstitch2_tpu_torch.ops import corr_cuda, tps_coords_cuda
@@ -2191,7 +2246,9 @@ def stage_recorder(net_steps: dict):
     def on_step(step, metrics):
         torch.cuda.synchronize()
         net_steps.setdefault("t", []).append(time.perf_counter())
-        net_steps.setdefault("loss", []).append(float(metrics["total"]))
+        terms = {k: float(v) for k, v in metrics.items()}
+        net_steps.setdefault("terms", []).append(terms)
+        net_steps.setdefault("loss", []).append(terms["total"])
         net_steps.setdefault("k1_r5", []).append(corr_cuda.LAUNCHES[5])
         net_steps.setdefault("k1_r3", []).append(corr_cuda.LAUNCHES[3])
         net_steps.setdefault("k3", []).append(
@@ -2217,10 +2274,12 @@ def traced_step(fn, trace_dir: str, which: int):
     return step
 
 
-def stage_report(rec: dict, t0: float, start_launches) -> dict:
-    """Step ms (median of the untraced steps after the first), launches
-    per step and the losses."""
-    import numpy as np
+def stage_report(rec: dict, t0: float, start_launches,
+                 steps_per_epoch: int, traced: bool) -> dict:
+    """Step ms, the steady ones (neither an epoch's first step, which
+    waits for the loader's first batch and, in the run's first epoch,
+    the capture, nor a traced step), launches per step, the losses and
+    the peak memory allocated and reserved."""
     import torch
 
     times = [t0] + rec["t"]
@@ -2229,10 +2288,12 @@ def stage_report(rec: dict, t0: float, start_launches) -> dict:
     for k in ("k1_r5", "k1_r3", "k3"):
         counts = [start_launches[k]] + rec[k]
         per_step[k] = [b - a for a, b in zip(counts, counts[1:])]
-    return {"steps": len(ms), "step_ms": ms,
-            "step_ms_median_after_first": float(np.median(ms[1:-1])),
+    steady = [m for i, m in enumerate(ms) if i % steps_per_epoch
+              and not (traced and i == len(ms) - 1)]
+    return {"steps": len(ms), "step_ms": ms, "steady_step_ms": steady,
             "launches_per_step": per_step, "loss": rec["loss"],
-            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
 
 
 def moved(net_cls, seed, sd) -> dict:
@@ -2256,22 +2317,124 @@ def moved(net_cls, seed, sd) -> dict:
             "bn_stats": len(stats)}
 
 
+STATS = ("running_mean", "running_var")
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(on: bool):
+    """PyTorch's and cuDNN's deterministic algorithms inside, where ``on``
+    (ops without one warn once and run as they are: the smooth step's
+    bicubic resize backward)."""
+    import warnings
+
+    import torch
+
+    if not on:
+        yield
+        return
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", ".*deterministic implementation")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+GAPS = ("loss", "param", "bn_stats", "rate")
+
+
+def run_gaps(a: dict, b: dict) -> dict:
+    """Between two runs of a stage (each ``{"terms": [per-step loss
+    terms], "state": state_dict, "rate": the last update's rate as Adam
+    read it}``): the largest relative gap of a step's loss term, the
+    largest |d| of a parameter and of a BatchNorm statistic after the
+    run, and |d| of the last rate."""
+    loss = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30)
+               for x, y in zip(a["terms"], b["terms"]) for k in y)
+    sa, sb = a["state"], b["state"]
+
+    def largest(keys):
+        return max((float((sa[k].double() - sb[k].double()).abs().max())
+                    for k in keys), default=0.0)
+
+    floats = [k for k in sb if sb[k].dtype.is_floating_point]
+    return {"loss": loss,
+            "param": largest([k for k in floats if not k.endswith(STATS)]),
+            "bn_stats": largest([k for k in floats if k.endswith(STATS)]),
+            "rate": abs(a["rate"] - b["rate"])}
+
+
+def captured_gate(captured: list, eager: list, faults: dict) -> dict:
+    """The captured step against the eager one, per gap of
+    :func:`run_gaps`: the eager spread is the largest gap between two
+    eager runs; a captured run's gap is its gap to the nearest eager run.
+    Where the eager runs are bit-equal (spread 0) the captured ones must
+    be; elsewhere (atomic sums in the backwards) a captured run's gap must
+    be at most CAPTURE_SPREAD_FACTOR times the spread. Each planted fault
+    must break that."""
+    import itertools
+
+    spread = {c: max(run_gaps(a, b)[c]
+                     for a, b in itertools.combinations(eager, 2))
+              for c in GAPS}
+
+    def gap(run):
+        each = [run_gaps(run, e) for e in eager]
+        return {c: min(g[c] for g in each) for c in spread}
+
+    def holds(g):
+        return all(g[c] <= CAPTURE_SPREAD_FACTOR * spread[c] for c in spread)
+
+    gaps = [gap(r) for r in captured]
+    worst = {c: max(g[c] for g in gaps) for c in spread}
+    require(holds(worst), f"captured step: gaps {worst} against the eager "
+                          f"spread {spread}")
+    fault_gaps = {name: gap(r) for name, r in faults.items()}
+    for name, g in fault_gaps.items():
+        require(not holds(g), f"the planted fault {name} passes the "
+                              f"captured-step gate: {g}, spread {spread}")
+    return {"case": {c: ("bit-equal" if v == 0 else
+                         f"eager runs differ: within {CAPTURE_SPREAD_FACTOR}"
+                         f"x their spread") for c, v in spread.items()},
+            "eager_spread": spread, "captured_gap": worst,
+            "captured_gaps": gaps, "faults": fault_gaps}
+
+
 def phase_train(device, tmp):
     """The training path through ``cli.main``: ``train spatial`` (ssd),
     ``train temporal``, ``export-motions --which both`` (the two trained
-    nets) and ``train smooth``, each TRAIN_STEPS steps at full width and
-    batch 8 on TRAIN_VIDEOS synthetic jpg clips of TRAIN_FRAMES frames at
-    360x480; then ``cli stitch`` of one clip with the trained triad
-    through ``--reference_pth_dir``. Per stage the counts are set to 0
-    just before and read just after; a hook waits for the card after each
-    step and records the time, the counts and the peak memory. Gates:
-    K1 and K3 launched per step as the recipe says, finite losses,
-    parameters and BatchNorm statistics moved, the export's files, the
-    stitched mp4's frames; the gradient gate (:func:`train_grad_gate`);
-    K1 and K3 held against their plain versions on the train inputs and
-    ``TpsCoords``' gradients against autograd through the plain version
-    (:func:`tps_grads_held`)."""
-    import functools
+    nets) and ``train smooth``, each TRAIN_STEPS steps (two epochs of
+    two, so the rate's staircase moves) at full width and batch 8 on
+    TRAIN_VIDEOS synthetic jpg clips of TRAIN_FRAMES frames at 360x480;
+    then ``cli stitch`` of one clip with the trained triad through
+    ``--reference_pth_dir``.
+
+    Each stage runs captured (the default: the step as one CUDA graph)
+    and, through the same ``cli.main`` call, with ``loop.train_*`` given
+    ``capture_step=False`` (the eager step), in turns: at cuDNN's default
+    algorithms captured (the run whose checkpoint goes on, its last step
+    traced), eager (last step traced), captured, eager, which give the
+    times and traces; then with PyTorch's and cuDNN's deterministic
+    algorithms (:func:`deterministic_algorithms`) captured, eager,
+    captured and three more eager, and the two planted faults,
+    captured: a replay that skips the copy of the new batch into the
+    static inputs, and the rate baked in as a Python number at capture.
+    Per run the counts are set to 0 just before and read just after; a
+    hook waits for the card after each step and records the time, the
+    loss terms and the counts; the cache's captures, replays, capture
+    seconds and replayed launches, the last update's rate and the peak
+    memory allocated and reserved are read after it. Gates: one capture
+    and TRAIN_STEPS - 1 replays, K1 and K3 launched per step as the
+    recipe says (captured and eager), the last rate on the staircase,
+    finite losses, parameters and BatchNorm statistics moved,
+    :func:`captured_gate` on the deterministic runs, the export's files,
+    the stitched mp4's frames; the gradient gate (:func:`train_grad_gate`);
+    K1 and K3 held against their plain versions on the first captured
+    run's inputs (its eager first step) and ``TpsCoords``' gradients
+    against autograd through the plain version (:func:`tps_grads_held`)."""
     import importlib
     import shutil
 
@@ -2282,7 +2445,9 @@ def phase_train(device, tmp):
     from stabstitch2_tpu_torch.models import SmoothNet, SpatialNet, TemporalNet
     from stabstitch2_tpu_torch.ops import corr_cuda, tps_coords_cuda
     from stabstitch2_tpu_torch.train import loop
+    from stabstitch2_tpu_torch.train.common import Optimizer
     from stabstitch2_tpu_torch.utils.checkpoint import TrainCheckpointer
+    from stabstitch2_tpu_torch.utils.graphs import GraphCache
     from synthetic import write_clip_dirs
 
     t_gate = time.perf_counter()
@@ -2304,47 +2469,115 @@ def phase_train(device, tmp):
     files = {"spatial": "spatial_warp.pth", "temporal": "temporal_warp.pth",
              "smooth": "smooth_warp.pth"}
     real = {k: getattr(loop, f"train_{k}") for k in nets}
+    real_replay, real_rate = GraphCache._replay, Optimizer.rate
 
-    def train(stage):
-        rec = {}
-        setattr(loop, f"train_{stage}",
-                functools.partial(real[stage], on_step=stage_recorder(rec)))
+    def stale_batch(self, captured, inputs):
+        # the planted fault: the batch (4-D and up) is not copied in
+        return real_replay(self, captured, [
+            s if x.dim() >= 4 else x
+            for s, x in zip(captured.inputs, inputs)])
+
+    def baked_rate(self):
+        # the planted fault: the host's rate, a constant of the capture
+        return torch.full((), self.lr(self.step_count), dtype=torch.float32,
+                          device=self.count.device)
+
+    def run(stage, tag, capture=True, trace=False, record=False, fault=None,
+            deterministic=False):
+        """One ``cli train`` run of ``stage`` (with the deterministic
+        algorithms where asked): its report and its ``{"terms", "state",
+        "rate"}``."""
+        rec, out = {}, {}
+
+        def wrapped(*args, **kwargs):
+            out["run"] = real[stage](*args, on_step=stage_recorder(rec),
+                                     capture_step=capture, **kwargs)
+            return out["run"]
+
+        setattr(loop, f"train_{stage}", wrapped)
         step_mod = importlib.import_module(
             f"stabstitch2_tpu_torch.train.{stage}")
         step_name = f"{stage}_train_step"
         step_fn = getattr(step_mod, step_name)
-        trace_dir = os.path.join(tmp, f"trace_{stage}")
-        setattr(step_mod, step_name,
-                traced_step(step_fn, trace_dir, TRAIN_STEPS))
-        model_dir = os.path.join(tmp, f"model_{stage}")
+        trace_dir = os.path.join(tmp, f"trace_{stage}_{tag}")
+        if trace:
+            setattr(step_mod, step_name,
+                    traced_step(step_fn, trace_dir, TRAIN_STEPS))
+        if fault == "stale_batch":
+            GraphCache._replay = stale_batch
+        elif fault == "baked_rate":
+            Optimizer.rate = baked_rate
+        model_dir = os.path.join(tmp, f"model_{stage}_{tag}")
+        gc.collect()
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        start_bytes = (torch.cuda.memory_allocated(),
+                       torch.cuda.memory_reserved())
         corr_cuda.LAUNCHES.clear()
         tps_coords_cuda.LAUNCHES.clear()
         t0 = time.perf_counter()
         try:
-            with held.recording():
+            with (held.recording() if record else contextlib.nullcontext()), \
+                    deterministic_algorithms(deterministic):
                 rc = cli.main(["train", stage, "--train_path", data,
-                               "--model_dir", model_dir, "--max_epoch", "1",
-                               "--max_steps_per_epoch", str(TRAIN_STEPS)])
+                               "--model_dir", model_dir,
+                               "--max_epoch", str(TRAIN_EPOCHS),
+                               "--max_steps_per_epoch",
+                               str(TRAIN_STEPS // TRAIN_EPOCHS)])
         finally:
             setattr(loop, f"train_{stage}", real[stage])
             setattr(step_mod, step_name, step_fn)
+            GraphCache._replay, Optimizer.rate = real_replay, real_rate
         wall = time.perf_counter() - t0
         require(rc == 0 and len(rec.get("t", ())) == TRAIN_STEPS,
-                f"train {stage}: rc {rc}, steps {len(rec.get('t', ()))}")
-        info = stage_report(rec, t0, {"k1_r5": 0, "k1_r3": 0, "k3": 0})
-        info["wall_s"] = wall
-        traces = sorted(glob.glob(os.path.join(trace_dir, "*.json")))
-        require(len(traces) == 1, f"train {stage}: one traced step {traces}")
-        info["traced_step"] = trace_stats(traces[0])[0] if traces else None
+                f"train {stage} {tag}: rc {rc}, steps {len(rec.get('t', ()))}")
+        info = stage_report(rec, t0, {"k1_r5": 0, "k1_r3": 0, "k3": 0},
+                            TRAIN_STEPS // TRAIN_EPOCHS, trace)
+        info.update(wall_s=wall,
+                    peak_above_start_bytes=info["peak_memory_bytes"]
+                    - start_bytes[0],
+                    reserved_above_start_bytes=info["peak_reserved_bytes"]
+                    - start_bytes[1])
+        tr = out["run"]
+        g = tr.graphs
+        require((g is not None) == capture, f"train {stage} {tag}: graphs")
+        if capture:
+            info.update(captures=g.captures, replays=g.replays,
+                        capture_s=g.capture_seconds,
+                        replayed_per_replay={
+                            k: n / max(g.replays, 1)
+                            for k, n in g.replayed.items()})
+            require(fault is not None or (g.captures, g.replays) == (
+                1, TRAIN_STEPS - 1), f"train {stage} {tag}: captures "
+                f"{g.captures}, replays {g.replays}")
+        if trace:
+            traces = sorted(glob.glob(os.path.join(trace_dir, "*.json")))
+            require(len(traces) == 1,
+                    f"train {stage} {tag}: one traced step {traces}")
+            info["traced_step"] = trace_stats(traces[0])[0] if traces \
+                else None
         per = info["launches_per_step"]
         got = tuple(per[k] for k in ("k1_r5", "k1_r3", "k3"))
-        require(all(list(n) == [w] * TRAIN_STEPS for n, w in zip(got, want[
-            stage])), f"train {stage}: launches per step {per}, want "
-                      f"{want[stage]}")
-        require(all(np.isfinite(info["loss"])), f"train {stage}: losses "
-                                                f"{info['loss']}")
+        require(fault is not None or all(
+            list(n) == [w] * TRAIN_STEPS for n, w in zip(got, want[stage])),
+            f"train {stage} {tag}: launches per step {per}, want "
+            f"{want[stage]}")
+        require(all(np.isfinite(info["loss"])),
+                f"train {stage} {tag}: losses {info['loss']}")
+        state = {k: v.detach().cpu().clone()
+                 for k, v in tr.net.state_dict().items()}
+        rate = float(tr.opt.adam.param_groups[0]["lr"])
+        info["last_rate"] = rate
+        require(fault is not None or rate == np.float32(
+            tr.opt.lr(TRAIN_STEPS - 1)), f"train {stage} {tag}: the last "
+            f"update's rate {rate}, want {tr.opt.lr(TRAIN_STEPS - 1)}")
+        return info, {"terms": rec["terms"], "state": state,
+                      "rate": rate}, model_dir
+
+    def train(stage):
+        info, first, model_dir = run(stage, "captured_1", trace=True,
+                                     record=True)
         ck = TrainCheckpointer(model_dir)
         payload = ck.restore()
         require(payload is not None and payload["step"] == TRAIN_STEPS,
@@ -2355,7 +2588,42 @@ def phase_train(device, tmp):
                 f"train {stage}: moved {info}")
         shutil.copy(ck.path(ck.latest_step()),
                     os.path.join(triad, files[stage]))
-        stages[stage] = info
+        runs = {"captured_1": info}
+        default = {"captured": [first], "eager": []}
+        for tag, capture in (("eager_1", False), ("captured_2", True),
+                             ("eager_2", False)):
+            runs[tag], r, _ = run(stage, tag, capture=capture,
+                                  trace=tag == "eager_1")
+            default["captured" if capture else "eager"].append(r)
+        # the gate's runs, with PyTorch's and cuDNN's deterministic
+        # algorithms: the default ones sum in a varying order, so that two
+        # eager runs differ (loss 2e-4-1.3e-3 relative after 4 steps) and
+        # a gap of 2x the spread of a few of them is a draw; here they are
+        # bit-equal where every op has a deterministic version
+        captured, eager = [], []
+        for tag, capture in (("det_captured_1", True), ("det_eager_1", False),
+                             ("det_captured_2", True), ("det_eager_2", False),
+                             ("det_eager_3", False), ("det_eager_4", False),
+                             ("det_eager_5", False)):
+            runs[tag], r, _ = run(stage, tag, capture=capture,
+                                  deterministic=True)
+            (captured if capture else eager).append(r)
+        faults = {}
+        for fault in ("stale_batch", "baked_rate"):
+            runs[fault], faults[fault], _ = run(stage, fault, fault=fault,
+                                                deterministic=True)
+        ms = {mode: [m for tag, r in runs.items() if tag.startswith(mode)
+                     for m in r["steady_step_ms"]]
+              for mode in ("captured", "eager")}
+        stages[stage] = {
+            "step_ms_median": {m: float(np.median(v)) for m, v in ms.items()},
+            "default_cudnn_gaps": {
+                "eager_spread": run_gaps(*default["eager"]),
+                "captured_to_nearest_eager": [
+                    {c: min(run_gaps(r, e)[c] for e in default["eager"])
+                     for c in GAPS}
+                    for r in default["captured"]]},
+            "gate": captured_gate(captured, eager, faults), "runs": runs}
 
     train("spatial")
     train("temporal")
@@ -2385,12 +2653,11 @@ def phase_train(device, tmp):
     tps_grads = tps_grads_held(held)
     return {"phase": "train", "videos": TRAIN_VIDEOS,
             "frames": TRAIN_FRAMES, "frame_hw": list(FRAME_HW),
-            "batch": 8, "steps": TRAIN_STEPS, "dtype": "float32",
-            "stages": stages, "export_s": export_s,
+            "batch": 8, "steps": TRAIN_STEPS, "epochs": TRAIN_EPOCHS,
+            "dtype": "float32", "stages": stages, "export_s": export_s,
             "export_files_per_stream": counts, "stitch_s": stitch_s,
             "stitched_mp4_frames": n_mp4, "grad_gate": gate,
             "held_against_plain": plain, "tps_coords_grads": tps_grads}
-
 
 
 def rel_l2(a, b) -> float:

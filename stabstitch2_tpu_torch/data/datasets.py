@@ -26,7 +26,7 @@ import glob
 import os
 import queue
 import threading
-from typing import Iterator, List, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -195,14 +195,24 @@ class SmoothWindowDataset:
                 motions("sm2"), im1, im2)
 
 
-def batch_iterator(dataset, batch_size: int, seed: int = 0) -> Iterator:
+def batch_iterator(dataset, batch_size: int, seed: int = 0,
+                   limit: Optional[int] = None) -> Iterator:
     """Numpy batches of ``dataset`` in an order shuffled from ``seed``, the
-    last partial batch dropped, stacked on a background thread two ahead.
-    Closing the generator early (a capped epoch) stops the thread; a
-    decode error is raised in the consumer."""
+    last partial batch dropped, at most ``limit`` of them, stacked on a
+    background thread two ahead. Closing the generator early stops the
+    thread; a decode error is raised in the consumer.
+
+    The datasets draw their random choices (pair gaps, view swaps, window
+    frames) from one generator as items are made, so a thread that runs
+    ahead of a capped epoch would draw for batches nobody takes, as many
+    as the host's speed lets it, and the next epoch's samples would depend
+    on that speed: ``limit`` (the loops pass their steps per epoch) keeps
+    it to the batches the epoch takes."""
     order = np.arange(len(dataset))
     np.random.default_rng(seed).shuffle(order)
     stops = len(order) - len(order) % batch_size
+    if limit is not None:
+        stops = min(stops, limit * batch_size)
     get_batch = getattr(dataset, "get_batch", None)
     stop = threading.Event()
     q: queue.Queue = queue.Queue(maxsize=2)

@@ -19,6 +19,20 @@ mode (spatial: ``output_H_ref``, ``output_H_tgt``, ``output_tps_ref``,
 smooth: none). ``on_step(step, metrics)``, when given, is called after
 every step (the metrics are tensors on the device, not waited on).
 
+Each step is a host part and a device body (``train/common.py``). With
+``capture_step`` (the default, the counterpart of the JAX package's
+jitted steps) the loop runs the body through a ``utils/graphs.py:
+GraphCache`` of its own: on a card the first step at a batch shape runs
+eagerly, is then captured as one CUDA graph (forward, K1/K3 and their
+backwards, clip, the device rate, Adam, BatchNorm statistics), and every
+later step copies its batch and augmentation factors into the graph's
+inputs and replays it; ``batch_iterator`` drops the last partial batch,
+so a run captures once. ``capture_step=False`` runs the same body eagerly
+(the counterpart of ``jax.disable_jit``). A capture that fails raises:
+nothing falls back to the eager step. On the CPU the body always runs
+directly. The panels, the test-set score and the logs stay eager, outside
+the graph. The loop's first line says which step runs.
+
 ``n_devices`` > 1 runs the loop data-parallel (``parallel/train.py``): N
 processes, rank r on device r (``parallel/devices.py:resolve_devices``;
 N ranks on the CPU with ``device='cpu'``, or an explicit device list),
@@ -32,7 +46,9 @@ a barrier after each epoch. The returned ``TrainRun`` holds rank 0's net
 (with its last step's gradients, as one process's net holds them) and
 optimizer on the first device, and what each rank wrote and launched;
 ``on_step`` is called after the ranks are done, once per step, with rank
-0's loss terms (the ranks' average).
+0's loss terms (the ranks' average). A data-parallel run keeps the eager
+step: its global BatchNorm all-reduces inside the forward, and the gloo
+collectives that several ranks on one card use cannot be captured.
 """
 
 from __future__ import annotations
@@ -41,7 +57,7 @@ import dataclasses
 import json
 import os
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,6 +77,8 @@ from stabstitch2_tpu_torch.parallel.devices import resolve_devices
 from stabstitch2_tpu_torch.parallel.train import Rank
 from stabstitch2_tpu_torch.train.common import Optimizer, draw_aug, make_optimizer
 from stabstitch2_tpu_torch.utils.checkpoint import TrainCheckpointer
+from stabstitch2_tpu_torch.utils.graphs import GraphCache
+from stabstitch2_tpu_torch.utils.transfer import to_device
 
 OnStep = Optional[Callable[[int, Dict[str, torch.Tensor]], None]]
 # first-sample arrays of a numpy batch -> {panel name: float HWC in [0, 1]}
@@ -74,13 +92,15 @@ SPATIAL_PANELS = ("output_H_ref", "output_H_tgt", "output_tps_ref",
 class TrainRun:
     """What a loop leaves: the trained net (train mode), its optimizer
     (whose ``step_count`` is the global step) and the last step's loss
-    terms; of a data-parallel run also the checkpoint paths each rank
-    wrote and each rank's kernel launches."""
+    terms; the cache its steps ran through (None for the eager step); of
+    a data-parallel run also the checkpoint paths each rank wrote and each
+    rank's kernel launches."""
 
     net: nn.Module
     opt: Optimizer
     metrics: Dict[str, torch.Tensor]
     checkpointer: TrainCheckpointer
+    graphs: Optional[GraphCache] = None
     saved_by_rank: Optional[List[List[str]]] = None
     launches_by_rank: Optional[List[Dict[str, int]]] = None
 
@@ -180,23 +200,41 @@ def _save(ckpt: TrainCheckpointer, net: nn.Module, opt: Optimizer,
 
 
 def _to(device, *arrays):
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                 for a in arrays)
+    """Host arrays on ``device``, copied without blocking the host."""
+    return tuple(to_device(np.ascontiguousarray(a), device) for a in arrays)
+
+
+def _step_graphs(capture_step: bool, rank: Rank
+                 ) -> Tuple[Optional[GraphCache], str]:
+    """The cache a loop's steps run through, and what the loop says of it
+    in its first line."""
+    if rank.group is not None:
+        return None, (f"eager step (data-parallel over {rank.world} ranks: "
+                      f"the global BatchNorm's all-reduces are not captured)")
+    if not capture_step:
+        return None, "eager step (capture_step=False)"
+    if rank.device.type != "cuda":
+        return GraphCache(), f"step run directly on {rank.device}"
+    return GraphCache(), ("step captured as a CUDA graph after its first "
+                          "call at a batch shape, then replayed")
 
 
 def _epochs(name, dataset, cfg, net, opt, steps_per_epoch, start_epoch,
             seed, writer, on_step, step_fn, after_epoch, rank: Rank,
-            panels: Panels = None):
+            mode: str, panels: Panels = None):
     """The shared epoch loop: ``step_fn(rows) -> metrics`` per step on this
     rank's rows of the batch, ``panels`` written at every PANEL_EVERY-th
     step (where there is a writer), ``after_epoch(epoch)`` after each
-    epoch on rank 0, then a barrier."""
+    epoch on rank 0, then a barrier. Rank 0 first prints ``mode``."""
     device = rank.device
     rows = rank.rows(cfg.batch_size)
     metrics: Dict[str, torch.Tensor] = {}
+    if rank.rank == 0:
+        print(f"[{name}] {mode}", flush=True)
     for epoch in range(start_epoch, cfg.max_epoch):
         t0 = time.perf_counter()
-        it = batch_iterator(dataset, cfg.batch_size, seed=seed + epoch)
+        it = batch_iterator(dataset, cfg.batch_size, seed=seed + epoch,
+                            limit=steps_per_epoch)
         try:
             for bi, batch in enumerate(it):
                 if bi >= steps_per_epoch:
@@ -229,8 +267,8 @@ def train_spatial(train_path: str, test_path: Optional[str] = None,
                   seed: int = 0, max_steps_per_epoch: Optional[int] = None,
                   model_h: int = 360, model_w: int = 480,
                   n_devices: Optional[int] = None, device="cuda",
-                  on_step: OnStep = None,
-                  rank: Optional[Rank] = None) -> TrainRun:
+                  on_step: OnStep = None, rank: Optional[Rank] = None,
+                  capture_step: bool = True) -> TrainRun:
     """The spatial trainer (module docstring); ``rank`` is set on the
     ranks of a data-parallel run (``parallel/train.py``)."""
     from stabstitch2_tpu_torch.metrics.psnr_ssim import ssim
@@ -267,6 +305,7 @@ def train_spatial(train_path: str, test_path: Optional[str] = None,
            else None)
     writer = _writer(summary_dir if rank.rank == 0 else None)
     aug = torch.Generator().manual_seed(seed)
+    graphs, mode = _step_graphs(capture_step, rank)
     best_file = os.path.join(model_dir, "best_ssim.json")
     best = {"ssim": -1.0}
     if restored and os.path.exists(best_file):
@@ -276,7 +315,7 @@ def train_spatial(train_path: str, test_path: Optional[str] = None,
     def step_fn(batch):
         img1, img2 = batch
         return spatial_train_step(net, opt, img1, img2, draw_aug(aug), cfg,
-                                  vgg)
+                                  vgg, graphs)
 
     def panels(img1, img2):
         out = spatial_train_outputs(net, *_to(dev, img1[:1], img2[:1]))
@@ -313,8 +352,9 @@ def train_spatial(train_path: str, test_path: Optional[str] = None,
                 json.dump({"best_ssim": cur, "step": opt.step_count}, f)
 
     metrics = _epochs("spatial", dataset, cfg, net, opt, spe, start, seed,
-                      writer, on_step, step_fn, after_epoch, rank, panels)
-    return TrainRun(net, opt, metrics, ckpt)
+                      writer, on_step, step_fn, after_epoch, rank, mode,
+                      panels)
+    return TrainRun(net, opt, metrics, ckpt, graphs)
 
 
 def train_temporal(train_path: str, cfg: Optional[TemporalTrainConfig] = None,
@@ -323,8 +363,8 @@ def train_temporal(train_path: str, cfg: Optional[TemporalTrainConfig] = None,
                    max_steps_per_epoch: Optional[int] = None,
                    model_h: int = 360, model_w: int = 480,
                    n_devices: Optional[int] = None, device="cuda",
-                   on_step: OnStep = None,
-                   rank: Optional[Rank] = None) -> TrainRun:
+                   on_step: OnStep = None, rank: Optional[Rank] = None,
+                   capture_step: bool = True) -> TrainRun:
     """The temporal trainer (module docstring); ``rank`` is set on the
     ranks of a data-parallel run (``parallel/train.py``)."""
     from stabstitch2_tpu_torch.train.temporal import (temporal_train_outputs,
@@ -348,10 +388,12 @@ def train_temporal(train_path: str, cfg: Optional[TemporalTrainConfig] = None,
         max_steps_per_epoch, rank, seed, "samples")
     writer = _writer(summary_dir if rank.rank == 0 else None)
     aug = torch.Generator().manual_seed(seed)
+    graphs, mode = _step_graphs(capture_step, rank)
 
     def step_fn(batch):
         prev, nxt = batch
-        return temporal_train_step(net, opt, prev, nxt, draw_aug(aug), cfg)
+        return temporal_train_step(net, opt, prev, nxt, draw_aug(aug), cfg,
+                                   graphs)
 
     def panels(prev, nxt):
         dev = next(net.parameters()).device
@@ -365,8 +407,9 @@ def train_temporal(train_path: str, cfg: Optional[TemporalTrainConfig] = None,
             _save(ckpt, net, opt, epoch + 1)
 
     metrics = _epochs("temporal", dataset, cfg, net, opt, spe, start, seed,
-                      writer, on_step, step_fn, after_epoch, rank, panels)
-    return TrainRun(net, opt, metrics, ckpt)
+                      writer, on_step, step_fn, after_epoch, rank, mode,
+                      panels)
+    return TrainRun(net, opt, metrics, ckpt, graphs)
 
 
 def train_smooth(train_path: str, cfg: Optional[SmoothTrainConfig] = None,
@@ -375,8 +418,8 @@ def train_smooth(train_path: str, cfg: Optional[SmoothTrainConfig] = None,
                  max_steps_per_epoch: Optional[int] = None,
                  model_h: int = 360, model_w: int = 480,
                  n_devices: Optional[int] = None, device="cuda",
-                 on_step: OnStep = None,
-                 rank: Optional[Rank] = None) -> TrainRun:
+                 on_step: OnStep = None, rank: Optional[Rank] = None,
+                 capture_step: bool = True) -> TrainRun:
     """The smooth trainer (module docstring); ``rank`` is set on the ranks
     of a data-parallel run (``parallel/train.py``)."""
     from stabstitch2_tpu_torch.train.smooth import smooth_train_step
@@ -400,14 +443,15 @@ def train_smooth(train_path: str, cfg: Optional[SmoothTrainConfig] = None,
         SmoothNet(), cfg, len(dataset), model_dir, max_steps_per_epoch,
         rank, seed, "windows (did export-motions run?)")
     writer = _writer(summary_dir if rank.rank == 0 else None)
+    graphs, mode = _step_graphs(capture_step, rank)
 
     def step_fn(batch):
-        return smooth_train_step(net, opt, batch, cfg)
+        return smooth_train_step(net, opt, batch, cfg, graphs)
 
     def after_epoch(epoch):
         if (epoch + 1) % 10 == 0 or epoch + 1 == cfg.max_epoch:
             _save(ckpt, net, opt, epoch + 1)
 
     metrics = _epochs("smooth", dataset, cfg, net, opt, spe, start, seed,
-                      writer, on_step, step_fn, after_epoch, rank)
-    return TrainRun(net, opt, metrics, ckpt)
+                      writer, on_step, step_fn, after_epoch, rank, mode)
+    return TrainRun(net, opt, metrics, ckpt, graphs)

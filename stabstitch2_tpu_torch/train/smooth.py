@@ -25,7 +25,8 @@ from stabstitch2_tpu_torch.ops.resize import resize_bicubic
 from stabstitch2_tpu_torch.ops.tps import tps_warp, tps_warp_with_mask
 from stabstitch2_tpu_torch.pipeline.transport import transport
 from stabstitch2_tpu_torch.train import losses
-from stabstitch2_tpu_torch.train.common import Optimizer, normalize_images
+from stabstitch2_tpu_torch.train.common import (Optimizer, normalize_images,
+                                                run_step, step_body)
 
 
 def transport_window(tmotion: torch.Tensor, smotion: torch.Tensor,
@@ -152,14 +153,17 @@ def smooth_loss_fn(net: SmoothNet, batch: Sequence[torch.Tensor],
     return total, {"total": total, **terms}
 
 
+def smooth_step_body(net: SmoothNet, opt: Optimizer, cfg: SmoothTrainConfig):
+    """The device body of a step (``train/common.py:step_body``):
+    ``body(*batch)`` -> the loss terms, detached."""
+    return step_body(opt, lambda *batch: smooth_loss_fn(net, batch, cfg))
+
+
 def smooth_train_step(net: SmoothNet, opt: Optimizer,
-                      batch: Sequence[torch.Tensor], cfg: SmoothTrainConfig
-                      ) -> Dict[str, torch.Tensor]:
-    """One optimizer step; the loss terms, detached (averaged over the
-    ranks of a data-parallel run)."""
+                      batch: Sequence[torch.Tensor], cfg: SmoothTrainConfig,
+                      graphs=None) -> Dict[str, torch.Tensor]:
+    """One optimizer step: :func:`smooth_step_body` run directly or through
+    ``graphs`` (``train/common.py:run_step``); the loss terms, detached."""
     net.train()
-    opt.zero_grad()
-    total, metrics = smooth_loss_fn(net, batch, cfg)
-    total.backward()
-    opt.step()
-    return opt.mean(metrics)
+    return run_step(graphs, "smooth", smooth_step_body(net, opt, cfg),
+                    tuple(batch), (net,), opt)

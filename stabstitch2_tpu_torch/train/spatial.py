@@ -25,7 +25,9 @@ from stabstitch2_tpu_torch.ops.mesh import (h2mesh, mesh_points,
 from stabstitch2_tpu_torch.ops.tps import tps_warp_with_mask
 from stabstitch2_tpu_torch.train import losses
 from stabstitch2_tpu_torch.train.common import (AugFactors, Optimizer,
-                                                apply_aug, normalize_images)
+                                                apply_aug, device_factors,
+                                                normalize_images, run_step,
+                                                step_body)
 
 
 def with_mask(warped: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -99,19 +101,28 @@ def spatial_loss_fn(net: SpatialNet, img1, img2, factors: Optional[AugFactors],
     return total, metrics
 
 
+def spatial_step_body(net: SpatialNet, opt: Optimizer,
+                      cfg: SpatialTrainConfig,
+                      vgg: Optional[VGG19Features] = None):
+    """The device body of a step (``train/common.py:step_body``):
+    ``body(img1, img2, *factors)`` -> the loss terms, detached; the four
+    factors as device tensors, or none."""
+    return step_body(opt, lambda img1, img2, *factors: spatial_loss_fn(
+        net, img1, img2, factors or None, cfg, vgg))
+
+
 def spatial_train_step(net: SpatialNet, opt: Optimizer, img1, img2,
                        factors: Optional[AugFactors], cfg: SpatialTrainConfig,
-                       vgg: Optional[VGG19Features] = None
+                       vgg: Optional[VGG19Features] = None, graphs=None
                        ) -> Dict[str, torch.Tensor]:
-    """One optimizer step in train mode (BatchNorm statistics move).
-    Returns the loss terms, detached, on the device (averaged over the
-    ranks of a data-parallel run)."""
+    """One optimizer step in train mode (BatchNorm statistics move): the
+    factors copied to the images' device, :func:`spatial_step_body` run
+    directly or through ``graphs`` (``train/common.py:run_step``), the step
+    counted. Returns the loss terms, detached, on the device."""
     net.train()
-    opt.zero_grad()
-    total, metrics = spatial_loss_fn(net, img1, img2, factors, cfg, vgg)
-    total.backward()
-    opt.step()
-    return opt.mean(metrics)
+    inputs = (img1, img2) + device_factors(factors, img1.device)
+    return run_step(graphs, "spatial", spatial_step_body(net, opt, cfg, vgg),
+                    inputs, (net, vgg), opt)
 
 
 def frozen_vgg(state_dict, device) -> VGG19Features:

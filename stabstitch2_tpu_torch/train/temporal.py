@@ -18,7 +18,9 @@ from stabstitch2_tpu_torch.ops.mesh import mesh_points, normalize_mesh, rigid_me
 from stabstitch2_tpu_torch.ops.tps import tps_warp_with_mask
 from stabstitch2_tpu_torch.train import losses
 from stabstitch2_tpu_torch.train.common import (AugFactors, Optimizer,
-                                                apply_aug, normalize_images)
+                                                apply_aug, device_factors,
+                                                normalize_images, run_step,
+                                                step_body)
 
 
 def temporal_train_outputs(net: TemporalNet, img_prev: torch.Tensor,
@@ -57,14 +59,22 @@ def temporal_loss_fn(net: TemporalNet, img_prev, img_next,
                    "total": total}
 
 
+def temporal_step_body(net: TemporalNet, opt: Optimizer,
+                       cfg: TemporalTrainConfig):
+    """The device body of a step (``train/common.py:step_body``):
+    ``body(img_prev, img_next, *factors)`` -> the loss terms, detached."""
+    return step_body(opt, lambda prev, nxt, *factors: temporal_loss_fn(
+        net, prev, nxt, factors or None, cfg))
+
+
 def temporal_train_step(net: TemporalNet, opt: Optimizer, img_prev, img_next,
                         factors: Optional[AugFactors],
-                        cfg: TemporalTrainConfig) -> Dict[str, torch.Tensor]:
-    """One optimizer step in train mode; the loss terms, detached
-    (averaged over the ranks of a data-parallel run)."""
+                        cfg: TemporalTrainConfig, graphs=None
+                        ) -> Dict[str, torch.Tensor]:
+    """One optimizer step in train mode: :func:`temporal_step_body` run
+    directly or through ``graphs`` (``train/common.py:run_step``); the
+    loss terms, detached."""
     net.train()
-    opt.zero_grad()
-    total, metrics = temporal_loss_fn(net, img_prev, img_next, factors, cfg)
-    total.backward()
-    opt.step()
-    return opt.mean(metrics)
+    inputs = (img_prev, img_next) + device_factors(factors, img_prev.device)
+    return run_step(graphs, "temporal", temporal_step_body(net, opt, cfg),
+                    inputs, (net,), opt)

@@ -1,6 +1,7 @@
 """Captured device programs: the port's counterpart of the JAX package's
 ``jax.jit`` cache on its fused motion programs (``pipeline/stitcher.py:
-_motion_fused``, ``_smooth_phase``; ``pipeline/online.py:_step``).
+_motion_fused``, ``_smooth_phase``; ``pipeline/online.py:_step``) and on
+its training steps (``train/{spatial,temporal,smooth}.py:*_train_step``).
 
 PyTorch runs eagerly, so a motion chain costs one host dispatch per
 kernel: ~114 kernels per frame in ``stitch_begin`` and ~1,000 per online
@@ -8,8 +9,9 @@ push, for a few ms of device work. :meth:`GraphCache.run` runs a function
 of tensors as a CUDA graph (``torch.cuda.graphs``) instead, one captured
 program per key, replayed by one launch on every later call. The key is
 the caller's name, the device, the inputs' shapes and dtypes, and the
-identity of the modules the function reads (their parameters are read in
-place, so a module replaced by a copy needs a new graph).
+identity of the modules (and other objects, such as an optimizer) the
+function reads (their parameters are read in place, so a module replaced
+by a copy needs a new graph).
 
 - The first call at a key runs the function eagerly on the current
   stream: its result is that call's, and the run makes what CUDA and the
@@ -39,6 +41,17 @@ place, so a module replaced by a copy needs a new graph).
   the graph's, and each replay adds them, so the counts stay what the
   card runs.
 
+A training step's graph (``train/common.py:run_step``) holds the whole
+step: normalization and augmentation of the static batch, the forward
+with BatchNorm's running statistics updated in place, the backward (K1's
+and K3's plain backwards with it) accumulating into the parameters'
+gradient tensors, which the eager first step made and ``zero_grad``
+zeroes in place, the clip, the rate from the optimizer's device count,
+the count's increment and Adam's update of the parameters and its state
+in place. Its static outputs are the detached loss terms. Nothing of it
+moves Python state, so the capture changes no count: the host counts
+the step after :meth:`GraphCache.run` returns.
+
 On a CPU device, which the caller asked for, :meth:`GraphCache.run` calls
 the function directly: that is the path the CPU tests take, and the card
 path differs from it only in capture and replay.
@@ -48,6 +61,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
@@ -87,7 +101,8 @@ class _Captured:
 class GraphCache:
     """One captured program per key, replayed (see the module docstring).
 
-    ``captures`` and ``replays`` count this cache's captures and replays;
+    ``captures`` and ``replays`` count this cache's captures and replays,
+    ``capture_seconds`` the host seconds its captures took;
     ``replayed`` counts the kernel launches its replays made, by kernel
     (``cost_volume_r5``, ``cost_volume_r3``, ``fused_warp``,
     ``tps_coords``, ``patch_gather``).
@@ -98,6 +113,7 @@ class GraphCache:
         self._pools: Dict[torch.device, tuple] = {}
         self._streams: Dict[torch.device, torch.cuda.Stream] = {}
         self.captures = 0
+        self.capture_seconds = 0.0
         self.replays = 0
         self.replayed: collections.Counter = collections.Counter()
 
@@ -105,7 +121,7 @@ class GraphCache:
         return len(self._graphs)
 
     def run(self, name: str, fn: Callable, *inputs: torch.Tensor,
-            modules: Sequence[torch.nn.Module] = ()):
+            modules: Sequence[object] = ()):
         """``fn(*inputs)``: directly on the CPU; on a card eagerly at a
         key's first call and then captured, replayed at every later call
         (outputs returned as copies). ``fn`` reads ``modules`` (and
@@ -127,6 +143,7 @@ class GraphCache:
             return self._replay(captured, inputs)
 
     def _capture(self, device, fn, inputs, modules) -> _Captured:
+        t0 = time.perf_counter()
         static = [x.clone() for x in inputs]
         if device not in self._pools:
             self._pools[device] = torch.cuda.graph_pool_handle()
@@ -144,6 +161,7 @@ class GraphCache:
                 m.LAUNCHES.clear()
                 m.LAUNCHES.update(c)
         self.captures += 1
+        self.capture_seconds += time.perf_counter() - t0
         return _Captured(graph, static, outputs, rebuild,
                          [d - b for d, b in zip(during, before)], modules)
 

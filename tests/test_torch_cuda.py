@@ -19,8 +19,16 @@ motion's CUDA graphs (``utils/graphs.py``) replay the eager functions bit
 for bit on 48-frame clips (a multiple of the chunk and of the 16-frame
 bucket), count the launches the eager path makes, leave a begun video's
 meshes alone, are made anew by ``replicate()``, and raise on a capture
-that waits for the card.
+that waits for the card. The trainers' captured steps equal their eager
+steps over four steps across an epoch boundary (bit for bit where two
+eager runs are, else within twice their gap), with one capture and three
+replays per loop, and two planted faults (a stale batch, a rate baked in
+at capture) fail that gate.
 """
+
+import collections
+import itertools
+import warnings
 
 import numpy as np
 import pytest
@@ -787,6 +795,168 @@ def test_trace_dir_captures_inside_the_profiler(cuda_device, tmp_path):
     for f in files:
         with open(f) as fh:
             assert "cost_volume_kernel" in fh.read(), f
+
+
+# the captured training step: each loop at 128x160, batch 2, two epochs of
+# two steps (the staircase moves at step 2), on two clips of 14 frames
+# (six 12-frame smooth windows)
+TRAIN_STEPS = 4
+TRAIN_FRAMES = 14
+BATCH_RANKS = 4     # tensors of 4 or more dims are the batch's
+
+
+@pytest.fixture(scope="module")
+def train_tree(tmp_path_factory):
+    """Two clips of TRAIN_FRAMES frames at 128x160 with seeded motions (the
+    smooth stage's inputs)."""
+    import os
+
+    from synthetic import write_clip_dirs
+
+    root = str(tmp_path_factory.mktemp("captured_train"))
+    rng = np.random.default_rng(0)
+    for i in range(2):
+        vd = write_clip_dirs(root, num_frames=TRAIN_FRAMES, height=128,
+                             width=160, seed=40 + i, video_name=f"v{i}")
+        for name, sd in (("TemporalMotion1", 0.5), ("TemporalMotion2", 0.5),
+                         ("SpatialMotion1", 2.0), ("SpatialMotion2", 2.0)):
+            os.makedirs(f"{vd}/{name}")
+            for f in range(TRAIN_FRAMES):
+                np.save(f"{vd}/{name}/{f:06d}.npy",
+                        rng.normal(0, sd, (7, 9, 2)).astype(np.float32))
+    return root
+
+
+def _train_loop(stage, root, model_dir, device, capture_step):
+    """The stage's loop as a user calls it; returns the run and (each
+    step's loss terms, the state, the last update's rate)."""
+    from stabstitch2_tpu_torch import config
+    from stabstitch2_tpu_torch.train import loop
+
+    cfg = getattr(config, f"{stage.capitalize()}TrainConfig")(
+        batch_size=2, max_epoch=2)
+    losses = []
+    run = getattr(loop, f"train_{stage}")(
+        root, cfg=cfg, model_dir=model_dir, max_steps_per_epoch=2,
+        model_h=128, model_w=160, device=device, capture_step=capture_step,
+        on_step=lambda s, m: losses.append(
+            {k: float(v) for k, v in m.items()}))
+    state = {k: v.detach().clone() for k, v in run.net.state_dict().items()}
+    return run, (losses, state, float(run.opt.adam.param_groups[0]["lr"]))
+
+
+def _gaps(a, b):
+    """(largest relative loss gap, largest |d| of the parameters, of the
+    BatchNorm statistics, |d| of the last update's rate) between two runs'
+    (losses, state, rate)."""
+    (la, sa, ra), (lb, sb, rb) = a, b
+    loss = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30)
+               for x, y in zip(la, lb) for k in y)
+    stats = ("running_mean", "running_var")
+    param = max((float((sa[k].double() - sb[k].double()).abs().max())
+                 for k in sb if sb[k].dtype.is_floating_point
+                 and not k.endswith(stats)), default=0.0)
+    bn = max((float((sa[k].double() - sb[k].double()).abs().max())
+              for k in sb if k.endswith(stats)), default=0.0)
+    return loss, param, bn, abs(ra - rb)
+
+
+def _held_to_eager(captured, eager):
+    """The gate of ``chip_smoke.py:captured_gate``: per gap of
+    :func:`_gaps`, each captured run's gap to the nearest eager run at most
+    twice the largest gap between two eager runs (so bit-equal where the
+    eager runs are). Returns whether it holds."""
+    pairs = itertools.combinations(eager, 2)
+    spread = [max(g) for g in zip(*(_gaps(a, b) for a, b in pairs))]
+    for run in captured:
+        gap = [min(g) for g in zip(*(_gaps(run, e) for e in eager))]
+        if not all(g <= 2 * s for g, s in zip(gap, spread)):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("stage", ["spatial", "temporal", "smooth"])
+def test_captured_training_step_equals_eager(cuda_device, train_tree,
+                                             tmp_path, monkeypatch, stage):
+    """Each loop's captured step against the same loop with
+    ``capture_step=False`` over two epochs of two steps: one capture and
+    three replays, the kernels' launches per replay as the eager step
+    makes them, the device count and rate at the staircase's second step,
+    and the gate of ``_held_to_eager`` on the losses, parameters,
+    BatchNorm statistics and last rate of four eager runs, all with
+    PyTorch's and cuDNN's deterministic algorithms. The planted faults, a replay that skips the
+    copy of the new batch into the static inputs and a rate baked in as a
+    Python number at capture, must each fail the gate."""
+    def run(tag, capture):
+        return _train_loop(stage, train_tree, str(tmp_path / tag),
+                           cuda_device, capture)
+
+    # the default algorithms sum in a varying order: with PyTorch's and
+    # cuDNN's deterministic ones two eager runs are bit-equal where every
+    # op has one (not the smooth step's bicubic resize backward), as in
+    # chip_smoke.py's gate runs
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore",
+                                    ".*deterministic implementation")
+            _captured_step_case(stage, run, monkeypatch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _captured_step_case(stage, run, monkeypatch):
+    """The body of :func:`test_captured_training_step_equals_eager`."""
+    from stabstitch2_tpu_torch.train.common import Optimizer
+    from stabstitch2_tpu_torch.utils.graphs import GraphCache
+
+    before = (collections.Counter(corr_cuda.LAUNCHES),
+              collections.Counter(tps_coords_cuda.LAUNCHES))
+    cap, captured = run("captured", True)
+    per_step = {"spatial": {"cost_volume_r5": 2, "tps_coords": 2},
+                "temporal": {"cost_volume_r3": 1, "tps_coords": 1},
+                "smooth": {"tps_coords": 8}}[stage]
+    g = cap.graphs
+    assert (g.captures, g.replays) == (1, TRAIN_STEPS - 1)
+    assert dict(g.replayed) == {k: n * (TRAIN_STEPS - 1)
+                                for k, n in per_step.items()}
+    launched = {"cost_volume_r5": corr_cuda.LAUNCHES[5] - before[0][5],
+                "cost_volume_r3": corr_cuda.LAUNCHES[3] - before[0][3],
+                "tps_coords": (tps_coords_cuda.LAUNCHES["tps_coords"]
+                               - before[1]["tps_coords"])}
+    assert {k: v for k, v in launched.items() if v} == {
+        k: n * TRAIN_STEPS for k, n in per_step.items()}
+    assert cap.opt.step_count == int(cap.opt.count) == TRAIN_STEPS
+    assert float(cap.opt.adam.param_groups[0]["lr"]) == np.float32(
+        cap.opt.lr(TRAIN_STEPS - 1))
+    eager = [run(f"eager{i}", False)[1] for i in range(4)]
+    assert _held_to_eager([captured], eager), [_gaps(captured, e)
+                                               for e in eager]
+
+    real_replay = GraphCache._replay
+
+    def stale_batch(self, captured, inputs):
+        return real_replay(self, captured, [
+            s if x.dim() >= BATCH_RANKS else x
+            for s, x in zip(captured.inputs, inputs)])
+
+    monkeypatch.setattr(GraphCache, "_replay", stale_batch)
+    stale = run("stale_batch", True)[1]
+    monkeypatch.undo()
+    monkeypatch.setattr(Optimizer, "rate", lambda self: torch.full(
+        (), self.lr(self.step_count), dtype=torch.float32,
+        device=self.count.device))
+    baked = run("baked_rate", True)[1]
+    monkeypatch.undo()
+    gaps = {"eager_pairs": [_gaps(a, b)
+                            for a, b in itertools.combinations(eager, 2)],
+            "stale_batch": _gaps(stale, eager[0]),
+            "baked_rate": _gaps(baked, eager[0])}
+    assert not _held_to_eager([stale], eager), gaps
+    assert not _held_to_eager([baked], eager), gaps
 
 
 def test_capture_that_waits_raises(cuda_device):
