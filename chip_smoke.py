@@ -104,10 +104,15 @@ Phases, each printing one JSON line with its seconds:
     must also see a planted fault (bfloat16 pair meshes)
     (``phase_multi``).
 13. ``metric``: ``evaluate_video`` on 16 frames at 360x480 with the
-    ``metric`` command's stitcher, counted (K3 warps the float views),
-    then ``cli metric --out_json``; gates on the launches, float32
-    metrics on the card against the CPU and the report
-    (``phase_metric``).
+    ``metric`` command's stitcher, its one captured program per 16-frame
+    bucket against ``--eager_motion``, in turns, counted (K3 warps the
+    float views): ms per video, replays, peak memory, capture seconds
+    per bucket, a trace of each; gates on one replay per video, the
+    launches, the gap to eager, a 13-frame video replaying the 16-frame
+    graph bit-equal to the program uncaptured (which a count baked in at
+    capture must fail), a 20-frame video capturing once, float32 metrics
+    on the card against the CPU, then ``cli metric --out_json`` and its
+    report (``phase_metric``).
 
 14. ``train``: the training path through ``cli.main`` at full width and
     batch 8, float32: ``train spatial`` (ssd), ``train temporal``,
@@ -235,6 +240,9 @@ ONLINE_FRAMES = 48
 TRACE_PUSHES = 8     # steady pushes in the online phase's trace
 MULTI_FRAMES = 16
 METRIC_FRAMES = 16
+METRIC_SHORT = 13    # a second length in METRIC_FRAMES' bucket
+METRIC_NEXT = 20     # a length in the next bucket (32)
+METRIC_ROUNDS = 3    # timed videos per mode, captured and eager in turns
 # float32 online against batch smooth meshes: the JAX package's
 # tests/test_online_mode.py bound (atol 5e-3 px)
 ONLINE_MESH_ATOL_PX = 5e-3
@@ -1969,49 +1977,201 @@ def phase_multi(device, tmp):
 
 
 def phase_metric(device, tmp):
-    """The metric harness: ``evaluate_video`` on a METRIC_FRAMES-frame clip
-    at 360x480 with the ``metric`` command's stitcher (bf16, bgr upload),
-    after a warm-up, counted (K3 evaluates the float warp's spline); then
-    ``cli metric --out_json``. Gates: K1 and K3 launched, finite metrics;
-    with float32 trunks the card's metrics within METRIC_RTOL of the
-    port's on the CPU over CPU_FRAMES frames; the report is written; K1
-    and K3 (the float warp's spline, from the warm-up) are held against
-    their plain versions on the path's inputs."""
+    """The metric harness with the ``metric`` command's stitcher (bf16,
+    bgr upload, chunk 8) at 360x480: its one captured program per
+    16-frame bucket (``metrics/harness.py:_fused_eval``) against
+    ``--eager_motion``'s eager path.
+
+    A warm-up of each (the program's first call runs eagerly, then is
+    captured; K1 and K3 recorded there), then METRIC_ROUNDS videos of
+    METRIC_FRAMES frames each way in turns: ms per video (host clock to
+    the fetched scores), graph replays, K1 r=5 / r=3 and K3 launches, peak
+    memory allocated and reserved (after ``empty_cache``, so the reserved
+    bytes at the start are the graphs' pools and live tensors), and the
+    reserved bytes each bucket's capture adds. Gates: one replay per captured video,
+    the launches equal the eager path's, the scores within METRIC_RTOL of
+    the eager path's and finite. Then the bucket: a replay at
+    METRIC_FRAMES and at METRIC_SHORT frames (same bucket) adds no capture
+    and equals the program called uncaptured on the same inputs bit for
+    bit; a METRIC_NEXT-frame video adds exactly one capture (bucket 32),
+    whose seconds are printed. A planted fault, a program that bakes the
+    frame count in at capture (captured at METRIC_FRAMES, replayed on the
+    METRIC_SHORT-frame video), must fail that bit-for-bit gate. A trace of
+    one video each way gives the card's idle share. K1 and K3 are held
+    against their plain versions on the warm-up's inputs; with float32
+    trunks the card's metrics lie within METRIC_RTOL of the port's on the
+    CPU over CPU_FRAMES frames; ``cli metric --out_json`` writes its
+    report."""
+    import dataclasses
+
     import numpy as np
     import torch
 
     from stabstitch2_tpu_torch import cli
+    from stabstitch2_tpu_torch.metrics import harness
     from stabstitch2_tpu_torch.metrics.harness import evaluate_video
     from stabstitch2_tpu_torch.ops import corr_cuda, tps_coords_cuda
     from stabstitch2_tpu_torch.pipeline.stitcher import init_stitcher
+    from stabstitch2_tpu_torch.utils.graphs import GraphCache
+    from stabstitch2_tpu_torch.utils.profiling import trace
     from synthetic import make_two_view_clip, write_clip_dirs
 
-    v1, v2 = make_two_view_clip(num_frames=METRIC_FRAMES, height=FRAME_HW[0],
-                                width=FRAME_HW[1], overlap=0.5, shake_px=4.0,
-                                seed=3)
+    def clip(T, seed):
+        return make_two_view_clip(num_frames=T, height=FRAME_HW[0],
+                                  width=FRAME_HW[1], overlap=0.5,
+                                  shake_px=4.0, seed=seed)
+
+    def rel_gaps(got, ref):
+        return {k: abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-12)
+                for k in ref}
+
+    v1, v2 = clip(METRIC_FRAMES, 3)
     data, out = os.path.join(tmp, "metric"), os.path.join(tmp, "metric.json")
     args = cli.make_parser().parse_args(["metric", "--test_path", data,
                                          "--out_json", out])
     st = cli.build_stitcher(args)
+    up = args.upload_format
+    eager = dataclasses.replace(st, fused_motion=False)
+    require(st.fused_motion and not eager.fused_motion and st.chunk == 8,
+            "the metric command's stitcher: fused, chunk 8")
     held = PathInputs()
-    with held.recording():      # the float warp's K3 calls
-        evaluate_video(st, v1, v2, upload=args.upload_format)  # warm-up
     torch.cuda.synchronize()
-    corr_cuda.LAUNCHES.clear()
-    tps_coords_cuda.LAUNCHES.clear()
-    replays = st.graphs.replays
-    t0 = time.perf_counter()
-    got = evaluate_video(st, v1, v2, upload=args.upload_format)
-    ms = (time.perf_counter() - t0) * 1e3
-    replays = st.graphs.replays - replays
-    require(st.fused_motion and replays > 0,
-            f"the harness's motion replayed from graphs: {replays}")
-    launches = {"cost_volume_r5": corr_cuda.LAUNCHES[5],
-                "cost_volume_r3": corr_cuda.LAUNCHES[3],
-                "tps_coords": tps_coords_cuda.LAUNCHES["tps_coords"]}
-    require(all(v > 0 for v in launches.values()),
-            f"K1 and K3 launched by the harness: {launches}")
-    require(all(np.isfinite(v) for v in got.values()), f"metrics {got}")
+    torch.cuda.empty_cache()
+    reserved = {"before": torch.cuda.memory_reserved()}
+    with held.recording():      # the motion's K1 and the float warp's K3
+        evaluate_video(st, v1, v2, upload=up)   # eager, then captured
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved[f"bucket {METRIC_FRAMES} captured"] = torch.cuda.memory_reserved()
+    evaluate_video(eager, v1, v2, upload=up)
+    torch.cuda.synchronize()
+    require(st.graphs.captures == 1 and len(st.graphs) == 1,
+            f"one capture after the warm-up: {st.graphs.captures}")
+    capture_s = {METRIC_FRAMES: st.graphs.capture_seconds}
+
+    def counted(s, a, b):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()    # reserved: the graphs' pools and live
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        start_reserved = torch.cuda.memory_reserved()
+        corr_cuda.LAUNCHES.clear()
+        tps_coords_cuda.LAUNCHES.clear()
+        replays = s.graphs.replays
+        t0 = time.perf_counter()
+        got = evaluate_video(s, a, b, upload=up)
+        return got, {
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "replays": s.graphs.replays - replays,
+            "launches": {"cost_volume_r5": corr_cuda.LAUNCHES[5],
+                         "cost_volume_r3": corr_cuda.LAUNCHES[3],
+                         "tps_coords": tps_coords_cuda.LAUNCHES[
+                             "tps_coords"]},
+            "allocated_at_start_bytes": start,
+            "reserved_at_start_bytes": start_reserved,
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
+
+    runs = {"captured": [], "eager": []}
+    got = {}
+    for r in range(METRIC_ROUNDS):
+        turns = (("captured", st), ("eager", eager))
+        for name, s in (turns if r % 2 == 0 else turns[::-1]):
+            got[name], row = counted(s, v1, v2)
+            runs[name].append(row)
+    launches = runs["eager"][0]["launches"]
+    require(all(row["replays"] == 1 for row in runs["captured"]),
+            f"one replay per captured video: {runs['captured']}")
+    require(all(row["launches"] == launches and v > 0
+                for row in runs["captured"] + runs["eager"]
+                for v in row["launches"].values()),
+            f"K1 and K3 launched, captured as eager: {runs}")
+    require(all(np.isfinite(v) for v in got["captured"].values()),
+            f"metrics {got['captured']}")
+    rel_eager = rel_gaps(got["captured"], got["eager"])
+    require(max(rel_eager.values()) <= METRIC_RTOL,
+            f"captured vs --eager_motion: relative gaps {rel_eager}")
+
+    # the bucket: replays against the program called uncaptured
+    def uncaptured(a, b):
+        with torch.no_grad():
+            x1, x2, n, _ = harness.metric_inputs(st, a, b, up, [])
+            ps, ss, *scores = harness._fused_eval(st)(x1, x2, n)
+        return ps, ss, torch.stack(scores)
+
+    def bit_equal(xs, ys):
+        return all(torch.equal(x, y) for x, y in zip(xs, ys))
+
+    bucket, want = {}, {}
+    for T in (METRIC_FRAMES, METRIC_SHORT):
+        captures, replays = st.graphs.captures, st.graphs.replays
+        h = harness._submit_video(st, v1[:T], v2[:T], up)
+        want[T] = uncaptured(v1[:T], v2[:T])
+        same = bit_equal((h.psnr, h.ssim, h.scores), want[T])
+        bucket[T] = {"new_captures": st.graphs.captures - captures,
+                     "replays": st.graphs.replays - replays,
+                     "equal_to_uncaptured": same}
+        require(bucket[T] == {"new_captures": 0, "replays": 1,
+                              "equal_to_uncaptured": True},
+                f"{T} frames in the 16-frame bucket: {bucket[T]}")
+    short_vs_eager = rel_gaps(
+        evaluate_video(st, v1[:METRIC_SHORT], v2[:METRIC_SHORT], up),
+        evaluate_video(eager, v1[:METRIC_SHORT], v2[:METRIC_SHORT], up))
+    w1, w2 = clip(METRIC_NEXT, 4)
+    captures, seconds = st.graphs.captures, st.graphs.capture_seconds
+    harness._submit_video(st, w1, w2, up)
+    torch.cuda.synchronize()
+    next_bucket = harness.metric_bucket(METRIC_NEXT, st.chunk)
+    capture_s[next_bucket] = st.graphs.capture_seconds - seconds
+    torch.cuda.empty_cache()
+    reserved[f"bucket {next_bucket} captured"] = torch.cuda.memory_reserved()
+    h = harness._submit_video(st, w1, w2, up)
+    bucket[METRIC_NEXT] = {
+        "new_captures": st.graphs.captures - captures,
+        "equal_to_uncaptured": bit_equal((h.psnr, h.ssim, h.scores),
+                                         uncaptured(w1, w2))}
+    require(bucket[METRIC_NEXT] == {"new_captures": 1,
+                                    "equal_to_uncaptured": True},
+            f"{METRIC_NEXT} frames: the next bucket {bucket[METRIC_NEXT]}")
+
+    # planted fault: the frame count baked in at capture
+    program, baked = harness._fused_eval(st), {}
+
+    def baked_count(a, b, n):
+        if "n" not in baked:     # read by the eager first call only
+            baked["n"] = int(n)
+        return program(a, b, baked["n"])
+
+    cache = GraphCache()
+    with torch.no_grad():
+        for T in (METRIC_FRAMES, METRIC_SHORT):
+            x1, x2, n, _ = harness.metric_inputs(st, v1[:T], v2[:T], up, [])
+            ps, ss, *scores = cache.run("metric", baked_count, x1, x2, n,
+                                        modules=(st.spatial_net,
+                                                 st.temporal_net,
+                                                 st.smooth_net))
+    require(cache.replays == 1, f"the fault replayed: {cache.replays}")
+    fault_caught = not bit_equal((ps, ss, torch.stack(scores)),
+                                 want[METRIC_SHORT])
+    fault_gap = (torch.stack(scores) - want[METRIC_SHORT][2]).abs() / \
+        want[METRIC_SHORT][2].abs()
+    require(fault_caught, "the baked-count fault fails the bit-for-bit gate")
+    del cache
+
+    traces = {}
+    for name, s in (("captured", st), ("eager", eager)):
+        d = os.path.join(tmp, f"trace_metric_{name}")
+        with trace(d):
+            evaluate_video(s, v1, v2, upload=up)
+        files = sorted(glob.glob(os.path.join(d, "*.json")))
+        require(len(files) == 1, f"one metric trace: {files}")
+        stats, names = trace_stats(files[0])
+        for k in ("cost_volume", "tps_coords"):
+            require(any(k in n for n in names),
+                    f"the {name} metric trace names a {k} kernel")
+        traces[name] = {k: stats[k] for k in (
+            "window_ms", "device_busy_ms", "device_idle_share", "kernels",
+            "cpu_ops", "top5_device_ms")}
     plain = held.hold(("cost_volume", "tps_coords"), "metric")
 
     n = CPU_FRAMES
@@ -2021,7 +2181,7 @@ def phase_metric(device, tmp):
     cpu = evaluate_video(init_stitcher(rng_seed=0,
                                        compute_dtype=torch.float32,
                                        device="cpu"), v1[:n], v2[:n])
-    rel = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-12) for k in cpu}
+    rel = rel_gaps(card, cpu)
     require(max(rel.values()) <= METRIC_RTOL,
             f"float32 metrics, card vs CPU: relative gaps {rel}")
     write_clip_dirs(data, num_frames=METRIC_FRAMES, height=FRAME_HW[0],
@@ -2031,13 +2191,23 @@ def phase_metric(device, tmp):
     if os.path.exists(out):
         with open(out) as f:
             report = json.load(f)
-    require(rc == 0 and set(report.get("average") or {}) == set(got),
+    require(rc == 0 and set(report.get("average") or {}) == set(got["eager"]),
             f"cli metric rc {rc}, report {report}")
     return {"phase": "metric", "frames": METRIC_FRAMES,
             "frame_hw": list(FRAME_HW), "compute_dtype": "bfloat16",
-            "upload": args.upload_format, "metrics": got,
-            "ms_per_video": ms, "launches": launches,
-            "graph_replays": replays,
+            "upload": up, "chunk": st.chunk, "metrics": got["captured"],
+            "ms_per_video": {k: [r["ms"] for r in v] for k, v in runs.items()},
+            "launches": launches, "runs": runs,
+            "captured_vs_eager_rel_gap": rel_eager,
+            "short_vs_eager_rel_gap": short_vs_eager,
+            "short_frames": METRIC_SHORT, "bucket": bucket,
+            "capture_seconds_by_bucket": capture_s,
+            "reserved_bytes_after_empty_cache": reserved,
+            "graph_captures": st.graphs.captures,
+            "graph_replayed_launches": dict(st.graphs.replayed),
+            "baked_count_fault": {"caught": fault_caught,
+                                  "scores_rel_gap": fault_gap.tolist()},
+            "traced": traces,
             "f32_card": card, "f32_cpu": cpu, "f32_rel_gap": rel,
             "rtol": METRIC_RTOL, "cpu_frames": n,
             "cli_report_average": report["average"],
@@ -2323,8 +2493,7 @@ STATS = ("running_mean", "running_var")
 @contextlib.contextmanager
 def deterministic_algorithms(on: bool):
     """PyTorch's and cuDNN's deterministic algorithms inside, where ``on``
-    (ops without one warn once and run as they are: the smooth step's
-    bicubic resize backward)."""
+    (an op without one warns once and runs as it is)."""
     import warnings
 
     import torch

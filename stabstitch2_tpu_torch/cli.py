@@ -45,7 +45,10 @@ clips, one mp4 each) is stitched as a chain of adjacent pairs, with the
 same defaults; clip k+1 is begun before clip k is finished.
 
 ``metric``: PSNR, SSIM, stability and distortion per video, per
-StabStitch-D category and on average, from uint8 BGR uploads by default.
+StabStitch-D category and on average, from uint8 BGR uploads by default;
+a video is one captured program per 16-frame length bucket (one replay
+per video, ``metrics/harness.py``), eager at its true length with
+``--eager_motion``.
 
 ``train``: one stage's trainer (``train/loop.py``), float32 with TF32
 off, writing ``step_<N>.pth`` checkpoints to ``--model_dir`` (default

@@ -10,7 +10,9 @@
   loss plus the intra-grid loss of each frame's smooth mesh (view 2).
 
 The ``_masked`` forms score the first ``n_valid`` frames of a longer
-array (a padded batch), equal to the scores of the slice.
+array (a padded batch), equal to the scores of the slice, with the count
+kept on the device (:func:`stability_distortion` is the metric program's
+use of them).
 """
 
 from __future__ import annotations
@@ -59,12 +61,22 @@ def distortion_score(mesh_seq: torch.Tensor) -> torch.Tensor:
 def stability_score_masked(path: torch.Tensor, n_valid) -> torch.Tensor:
     """``stability_score(path[:n_valid])`` on the whole array [Tp, ...]
     (Tp >= n_valid >= 7): the same recurrence, averaged over the
-    n_valid - 6 true centres only."""
+    n_valid - 6 true centres only.
+
+    ``n_valid`` is an int or a 0-dim integer tensor on the path's device.
+    Its value is never read on the host: the denominator
+    ``max(n_valid - 6, 1) * numel`` is computed on the device in the
+    path's dtype, as the JAX package computes it from a traced count, so a
+    captured program (``utils/graphs.py``) serves every count."""
     Tp = path.shape[0]
+    if not torch.is_tensor(n_valid):
+        n_valid = torch.full((), n_valid, dtype=torch.int32,
+                             device=path.device)
     mid = path[3:Tp - 3]
     centers = torch.arange(Tp - 6, device=path.device)
     valid = (centers < n_valid - 6)[:, None, None, None]
-    denom = max(int(n_valid) - 6, 1) * path[0].numel()
+    denom = (torch.clamp(n_valid - 6, min=1)
+             * path[0].numel()).to(path.dtype)
     total = torch.zeros((), dtype=path.dtype, device=path.device)
     zero = torch.zeros((), dtype=path.dtype, device=path.device)
     for off, w in ((1, 0.9), (2, 0.3), (3, 0.1)):
@@ -77,7 +89,23 @@ def stability_score_masked(path: torch.Tensor, n_valid) -> torch.Tensor:
 
 
 def distortion_score_masked(mesh_seq: torch.Tensor, n_valid) -> torch.Tensor:
-    """``distortion_score(mesh_seq[:n_valid])`` on the whole array."""
+    """``distortion_score(mesh_seq[:n_valid])`` on the whole array
+    (``n_valid`` as in :func:`stability_score_masked`)."""
     per = distortion_per_frame(mesh_seq)
     keep = torch.arange(per.shape[0], device=per.device) < n_valid
     return torch.max(torch.where(keep, per, torch.full_like(per, -torch.inf)))
+
+
+def stability_distortion(win_ori2: torch.Tensor, win_smooth2: torch.Tensor,
+                         ori_mesh2: torch.Tensor, smooth_mesh2: torch.Tensor,
+                         n_valid) -> Tuple[torch.Tensor, ...]:
+    """Stability and distortion of view 2, before smoothing and after
+    (stability_ori, stability, distortion_ori, distortion), from the
+    smoothing's padded outputs (win_*: [Tp - window + 1, window, ...],
+    meshes [Tp, ...]) and the true frame count ``n_valid`` (port of the
+    JAX package's ``metrics/harness.py:_stability_distortion``)."""
+    ori_path2, smooth_path2 = continue_paths(win_ori2, win_smooth2)
+    return (stability_score_masked(ori_path2, n_valid),
+            stability_score_masked(smooth_path2, n_valid),
+            distortion_score_masked(ori_mesh2, n_valid),
+            distortion_score_masked(smooth_mesh2, n_valid))

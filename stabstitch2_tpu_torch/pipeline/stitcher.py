@@ -17,8 +17,7 @@ earlier chunks' kernels. Both run the motion nets on the same chunks
 
 ``fused_motion`` (the default, as in the JAX package) runs phases 1-4 of
 the bulk paths (``stitch_begin`` in bulk upload, :meth:`VideoStitcher.
-motion_smooth`, which the N-view chain and the metric harness call) as
-captured programs (``utils/graphs.py``): per motion chunk the spatial
+motion_smooth`, which the N-view chain calls) as captured programs (``utils/graphs.py``): per motion chunk the spatial
 motion with the temporal features, per pair chunk the temporal motion,
 each at the one chunk shape, and transport with the smoothing of every
 window as one program per 16-frame bucket, padded by repeating the last
@@ -28,6 +27,9 @@ replayed; on the CPU the same functions run directly. ``fused_motion=
 False`` (``cli --eager_motion``) runs them eagerly at the true sizes;
 where T is a multiple of 16 and of the chunk the two give the same bits.
 ``upload_mode`` 'stream' keeps its eager per-chunk interleave either way.
+The metric harness captures a larger program of its own
+(``metrics/harness.py``) from :meth:`VideoStitcher.motions` and
+:meth:`VideoStitcher.smooth_program`.
 
 On several devices (``init_stitcher(n_devices=N)``, the JAX package's
 data-parallel inference) one process deals the chunks round-robin: chunk
@@ -399,8 +401,20 @@ class VideoStitcher:
         no waits either way. ``timer`` marks the phases ``spatial`` (the
         spatial motion and the temporal features), ``temporal`` and
         ``smooth``; with ``fused_motion`` only ``smooth`` waits."""
-        motion = self._motion
         graphs = self.graphs if self.fused_motion else None
+        return self._smooth(*self.motions(l1, l2, graphs, timer), timer,
+                            graphs)
+
+    @torch.no_grad()
+    def motions(self, l1: Frames, l2: Frames,
+                graphs: Optional[GraphCache] = None,
+                timer: Optional[PhaseTimer] = None):
+        """Phases 1-3 of :meth:`motion_smooth`: (spatial motion 1, spatial
+        motion 2, temporal motion 1, temporal motion 2), each [T, GH+1,
+        GW+1, 2] on the first device; the chunk programs through
+        ``graphs``, or eagerly without it (as inside a captured program,
+        which cannot replay another)."""
+        motion = self._motion
         c1, c2 = motion.split(l1), motion.split(l2)
         with annotate("spatial"):
             m1, m2, f1, f2 = zip(*(motion.motion_chunk(a, b, k, graphs)
@@ -412,16 +426,12 @@ class VideoStitcher:
             tmotion1, tmotion2 = motion.temporal_from_features(f1, f2, graphs)
         if timer is not None:
             timer.mark("temporal", sync=graphs is None)
-        return self._smooth(smotion1, smotion2, tmotion1, tmotion2, timer,
-                            graphs)
+        return smotion1, smotion2, tmotion1, tmotion2
 
-    def _smooth(self, smotion1, smotion2, tmotion1, tmotion2,
-                timer: Optional[PhaseTimer], graphs: Optional[GraphCache]
-                ) -> Dict[str, torch.Tensor]:
-        """Transport and the smoothing of every window (phase 'smooth'):
-        eagerly without ``graphs``; else one program per 16-frame bucket
-        through ``graphs``, the motions padded by repeating the last frame
-        and the outputs cropped to T frames (T - window + 1 windows)."""
+    def smooth_program(self):
+        """Transport and the smoothing of every window as one function of
+        the motions (tmotion1, smotion1, tmotion2, smotion2), each [T, ...]
+        on the first device: the dict of :func:`smooth_all_windows`."""
         mh, mw, window = self.model_h, self.model_w, self.config.window
 
         def program(tm1, sm1, tm2, sm2):
@@ -431,6 +441,17 @@ class VideoStitcher:
                                       stitched_meshes(sm2, mh, mw),
                                       ts1, ts2, window=window)
 
+        return program
+
+    def _smooth(self, smotion1, smotion2, tmotion1, tmotion2,
+                timer: Optional[PhaseTimer], graphs: Optional[GraphCache]
+                ) -> Dict[str, torch.Tensor]:
+        """Transport and the smoothing of every window (phase 'smooth'):
+        eagerly without ``graphs``; else one program per 16-frame bucket
+        through ``graphs``, the motions padded by repeating the last frame
+        and the outputs cropped to T frames (T - window + 1 windows)."""
+        window = self.config.window
+        program = self.smooth_program()
         with annotate("smooth"):
             motions = (tmotion1, smotion1, tmotion2, smotion2)
             if graphs is None:

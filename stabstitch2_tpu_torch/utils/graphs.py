@@ -130,9 +130,7 @@ class GraphCache:
         device = inputs[0].device
         if device.type != "cuda":
             return fn(*inputs)
-        key = (name, device,
-               tuple((tuple(x.shape), x.dtype) for x in inputs),
-               tuple(id(m) for m in modules))
+        key = self.key(name, inputs, modules)
         captured = self._graphs.get(key)
         with torch.cuda.device(device):
             if captured is None:
@@ -141,6 +139,14 @@ class GraphCache:
                                                   tuple(modules))
                 return out
             return self._replay(captured, inputs)
+
+    @staticmethod
+    def key(name: str, inputs: Sequence[torch.Tensor],
+            modules: Sequence[object] = ()) -> tuple:
+        """The key of :meth:`run`'s call: one graph per key."""
+        return (name, inputs[0].device,
+                tuple((tuple(x.shape), x.dtype) for x in inputs),
+                tuple(id(m) for m in modules))
 
     def _capture(self, device, fn, inputs, modules) -> _Captured:
         t0 = time.perf_counter()

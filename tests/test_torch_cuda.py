@@ -19,7 +19,10 @@ motion's CUDA graphs (``utils/graphs.py``) replay the eager functions bit
 for bit on 48-frame clips (a multiple of the chunk and of the 16-frame
 bucket), count the launches the eager path makes, leave a begun video's
 meshes alone, are made anew by ``replicate()``, and raise on a capture
-that waits for the card. The trainers' captured steps equal their eager
+that waits for the card. The metric harness's one program per
+16-frame bucket replays once per video for every length of the bucket
+and equals itself called uncaptured bit for bit, and two replicas'
+composed programs equal it. The trainers' captured steps equal their eager
 steps over four steps across an epoch boundary (bit for bit where two
 eager runs are, else within twice their gap), with one capture and three
 replays per loop, and two planted faults (a stale batch, a rate baked in
@@ -767,6 +770,76 @@ def test_graph_launch_counts_equal_eager(cuda_device):
                                         "cost_volume_r3": 11}
 
 
+def _metric_clip(T, seed=5):
+    from synthetic import make_two_view_clip
+
+    return make_two_view_clip(num_frames=T, height=128, width=160,
+                              overlap=0.6, shake_px=2.0, seed=seed)
+
+
+def _metric_outputs(handle):
+    return handle.psnr, handle.ssim, handle.scores
+
+
+def test_metric_program_replays_equal_uncaptured(cuda_device):
+    """The metric harness's one program per 16-frame bucket (bf16, chunk
+    8, 128x160): its first call captures it, every later video of the
+    bucket (T = 16, 10 and 13) is one replay and no capture, with the
+    eager path's K1 and K3 launches at T = 16; each replay's outputs
+    equal the program called uncaptured on the same inputs bit for bit."""
+    import dataclasses
+
+    from stabstitch2_tpu_torch.metrics import harness
+
+    st = init_stitcher(0, model_h=128, model_w=160, device=cuda_device)
+    eager = dataclasses.replace(st, fused_motion=False)
+    clips = {T: _metric_clip(T, seed=T) for T in (16, 10, 13)}
+
+    def counted(s, clip):
+        corr_cuda.LAUNCHES.clear()
+        tps_coords_cuda.LAUNCHES.clear()
+        handle = harness._submit_video(s, *clip)
+        return handle, (dict(corr_cuda.LAUNCHES),
+                        dict(tps_coords_cuda.LAUNCHES))
+
+    harness._submit_video(st, *clips[16])            # eager, then captured
+    assert st.graphs.captures == 1 and st.graphs.replays == 0
+    want = counted(eager, clips[16])[1]
+    assert want == ({5: 4, 3: 2}, {"tps_coords": 4})
+    for T, clip in clips.items():
+        replays = st.graphs.replays
+        handle, launches = counted(st, clip)
+        assert st.graphs.replays == replays + 1 and st.graphs.captures == 1
+        assert launches == want
+        with torch.no_grad():
+            x1, x2, n, _ = harness.metric_inputs(st, *clip, "bgr", [])
+            ps, ss, *scores = harness._fused_eval(st)(x1, x2, n)
+        for g, w in zip(_metric_outputs(handle), (ps, ss, torch.stack(scores))):
+            torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("upload", ["bgr", "i420"])
+def test_metric_two_replicas_equal_one(cuda_device, upload):
+    """Two replicas on the card (the composed programs: per-chunk motion,
+    the bucket's smoothing with the masked scores, per-chunk warp) give
+    one replica's one-program scores bit for bit, at two lengths of the
+    bucket."""
+    from stabstitch2_tpu_torch.metrics import harness
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    one, two = (init_stitcher(0, model_h=128, model_w=160, chunk=4, device=d)
+                for d in (card, [card, card]))
+    assert len(two._motion.replicas) == 2
+    for T in (10, 13):
+        clip = _metric_clip(T, seed=T)
+        handles = [harness._submit_video(s, *clip, upload=upload)
+                   for s in (one, two)]
+        for g, w in zip(*map(_metric_outputs, handles)):
+            torch.testing.assert_close(g, w, atol=0, rtol=0)
+    assert sorted({k[0] for k in two.graphs._graphs}) == [
+        "metric_scores", "metric_warp", "motion", "pair"]
+
+
 def test_trace_dir_captures_inside_the_profiler(cuda_device, tmp_path):
     """``cli stitch --trace_dir`` on a fresh stitcher: the first video's
     graphs are captured while torch.profiler traces, the second replays
@@ -892,8 +965,7 @@ def test_captured_training_step_equals_eager(cuda_device, train_tree,
                            cuda_device, capture)
 
     # the default algorithms sum in a varying order: with PyTorch's and
-    # cuDNN's deterministic ones two eager runs are bit-equal where every
-    # op has one (not the smooth step's bicubic resize backward), as in
+    # cuDNN's deterministic ones two eager runs are bit-equal, as in
     # chip_smoke.py's gate runs
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True

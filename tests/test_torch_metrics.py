@@ -6,10 +6,15 @@ Tolerances (those of the JAX package's tests/test_losses_metrics.py):
   losses also against tests/goldens/grid_losses.npz, the reference's
   values; ``intra_grid_loss`` with atol 1e-7 as there);
 - ``evaluate_video`` against JAX's on the same float32 weights at
-  128x160: rtol 1e-4 with the bgr upload, 2e-3 with the i420 upload (the
-  JAX test's bounds for its eager path and for uint8 against float
-  inputs). K3's plain version gives the float warp's coordinates on the
-  CPU.
+  128x160, T = 10 and 13 (one 16-frame bucket): rtol 1e-4 with the bgr
+  upload, 2e-3 with the i420 upload (the JAX test's bounds for its eager
+  path and for uint8 against float inputs); the port's program against
+  its own ``--eager_motion`` path at 1e-4 (the JAX test's bound for its
+  program against its eager path). K3's plain version gives the float
+  warp's coordinates on the CPU.
+- the masked scores with the count as an int and as a tensor against the
+  sliced scores and JAX's at 1e-5, and on the ``meta`` device, where a
+  read of the count raises.
 """
 
 import json
@@ -118,21 +123,49 @@ class TestScores:
             rtol=1e-5)
         assert float(scores.stability_score(torch.ones(12, 7, 9, 2))) < 1e-10
 
-    def test_masked_scores_equal_sliced(self):
+    @pytest.mark.parametrize("count", ["int", "tensor"])
+    @pytest.mark.parametrize("n", [7, 9, 12, 16])
+    def test_masked_scores_equal_sliced(self, n, count):
+        """The masked scores of a padded array with the count as an int or
+        as a 0-dim tensor equal the scores of the slice and JAX's masked
+        scores."""
         rng = np.random.default_rng(11)
         full = rng.normal(0, 1, (16, 7, 9, 2)).astype(np.float32)
         base = np.stack(np.meshgrid(np.linspace(0, 480, 9),
                                     np.linspace(0, 360, 7)), -1)
         mesh = (base[None] + rng.normal(0, 6, (16, 7, 9, 2))).astype(np.float32)
-        for n in (7, 9, 12, 16):
-            path = np.concatenate(
-                [full[:n], np.tile(full[n - 1:n], (16 - n, 1, 1, 1))], 0)
-            np.testing.assert_allclose(
-                float(scores.stability_score_masked(t(path), n)),
-                float(scores.stability_score(t(full[:n]))), rtol=1e-5)
-            np.testing.assert_allclose(
-                float(scores.distortion_score_masked(t(mesh), n)),
-                float(scores.distortion_score(t(mesh[:n]))), rtol=1e-5)
+        path = np.concatenate(
+            [full[:n], np.tile(full[n - 1:n], (16 - n, 1, 1, 1))], 0)
+        n_valid = n if count == "int" else torch.tensor(n, dtype=torch.int32)
+        got_stab = float(scores.stability_score_masked(t(path), n_valid))
+        got_dist = float(scores.distortion_score_masked(t(mesh), n_valid))
+        np.testing.assert_allclose(
+            got_stab, float(scores.stability_score(t(full[:n]))), rtol=1e-5)
+        np.testing.assert_allclose(
+            got_dist, float(scores.distortion_score(t(mesh[:n]))), rtol=1e-5)
+        np.testing.assert_allclose(
+            got_stab, float(j_scores.stability_score_masked(
+                jnp.asarray(path), jnp.int32(n))), rtol=1e-5)
+        np.testing.assert_allclose(
+            got_dist, float(j_scores.distortion_score_masked(
+                jnp.asarray(mesh), jnp.int32(n))), rtol=1e-5)
+
+    def test_masked_scores_read_no_count_on_the_host(self):
+        """On the ``meta`` device no value exists, so any read of the count
+        (``int()``, ``.item()``, a branch on it) raises: the masked scores
+        and the program's ``stability_distortion`` run there, as a
+        captured program needs."""
+        meta = torch.device("meta")
+        n = torch.empty((), dtype=torch.int32, device=meta)
+        with pytest.raises(RuntimeError):
+            int(n)
+        path = torch.empty(16, 7, 9, 2, device=meta)
+        for out in (scores.stability_score_masked(path, n),
+                    scores.distortion_score_masked(path, n)):
+            assert out.device == meta and out.shape == ()
+        win = torch.empty(10, 7, 7, 9, 2, device=meta)
+        got = scores.stability_distortion(win, win, path, path, n)
+        assert [x.shape for x in got] == [()] * 4
 
 
 @pytest.fixture(scope="module")
@@ -151,17 +184,66 @@ def stitchers():
     return js, st
 
 
+def clip_of(T, seed=5):
+    return make_two_view_clip(num_frames=T, height=MH, width=MW, overlap=0.6,
+                              shake_px=2.0, seed=seed)
+
+
+def assert_close(got, want, rtol):
+    assert set(got) == set(want) == KEYS
+    for k in KEYS:
+        np.testing.assert_allclose(got[k], want[k], rtol=rtol, err_msg=k)
+
+
 class TestHarness:
+    @pytest.mark.parametrize("T", [10, 13])
     @pytest.mark.parametrize("upload,rtol", [("bgr", 1e-4), ("i420", 2e-3)])
-    def test_evaluate_video_matches_jax(self, stitchers, upload, rtol):
+    def test_evaluate_video_matches_jax(self, stitchers, upload, rtol, T):
+        """The port's default, the one program per 16-frame bucket
+        (``_fused_eval``), against the JAX package's at two lengths of the
+        bucket."""
         js, st = stitchers
-        v1, v2 = make_two_view_clip(num_frames=10, height=MH, width=MW,
-                                    overlap=0.6, shake_px=2.0, seed=5)
-        got = harness.evaluate_video(st, v1, v2, upload=upload)
-        want = j_harness.evaluate_video(js, v1, v2, upload=upload)
-        assert set(got) == set(want) == KEYS
-        for k in KEYS:
-            np.testing.assert_allclose(got[k], want[k], rtol=rtol, err_msg=k)
+        assert st.fused_motion
+        v1, v2 = clip_of(T)
+        assert_close(harness.evaluate_video(st, v1, v2, upload=upload),
+                     j_harness.evaluate_video(js, v1, v2, upload=upload),
+                     rtol)
+
+    @pytest.mark.parametrize("T", [10, 13])
+    def test_program_matches_eager_motion(self, stitchers, T):
+        """The program at the bucket's length against ``--eager_motion``'s
+        eager path at the true T, within the JAX test's bound for its
+        program against its eager path."""
+        import dataclasses
+
+        _, st = stitchers
+        v1, v2 = clip_of(T, seed=6)
+        eager = dataclasses.replace(st, fused_motion=False)
+        assert_close(harness.evaluate_video(st, v1, v2),
+                     harness.evaluate_video(eager, v1, v2), 1e-4)
+
+    def test_one_graph_key_per_bucket(self, stitchers, monkeypatch):
+        """T = 10 and T = 13 reach the stitcher's ``GraphCache.run`` under
+        one key, with the true count as a 0-dim int32 tensor; T = 17 under
+        the next bucket's. Each video makes that one call."""
+        _, st = stitchers
+        calls = []
+        run = st.graphs.run
+
+        def spy(name, fn, *inputs, modules=()):
+            calls.append((st.graphs.key(name, inputs, modules),
+                          inputs[-1].clone()))
+            return run(name, fn, *inputs, modules=modules)
+
+        monkeypatch.setattr(st.graphs, "run", spy)
+        for T in (10, 13, 17):
+            harness.evaluate_video(st, *clip_of(T))
+        keys = [k for k, _ in calls]
+        assert len(keys) == 3 and keys[0] == keys[1] != keys[2]
+        assert [k[0] for k in keys] == ["metric"] * 3
+        assert [k[2][0][0][0] for k in keys] == [16, 16, 32]
+        assert [(int(n), n.dtype, n.dim()) for _, n in calls] == [
+            (T, torch.int32, 0) for T in (10, 13, 17)]
 
     def test_float_input_and_bad_upload(self, stitchers):
         _, st = stitchers
