@@ -110,9 +110,10 @@ Phases, each printing one JSON line with its seconds:
     per bucket, a trace of each; gates on one replay per video, the
     launches, the gap to eager, a 13-frame video replaying the 16-frame
     graph bit-equal to the program uncaptured (which a count baked in at
-    capture must fail), a 20-frame video capturing once, float32 metrics
-    on the card against the CPU, then ``cli metric --out_json`` and its
-    report (``phase_metric``).
+    capture must fail), a 20-frame video capturing once, with float32
+    trunks the 13-frame program against ``--eager_motion`` (within
+    METRIC_RTOL) and the card's metrics against the CPU, then ``cli
+    metric --out_json`` and its report (``phase_metric``).
 
 14. ``train``: the training path through ``cli.main`` at full width and
     batch 8, float32: ``train spatial`` (ssd), ``train temporal``,
@@ -164,12 +165,15 @@ Phases, each printing one JSON line with its seconds:
 
 Phases 11-14 also hold every kernel that their path runs against its
 plain version on the card, on the inputs that path gave it (the latest
-call at each of up to HELD_PER_KERNEL shapes, ``PathInputs``): K2 and K3
-exactly, K1 and K4 within the kernels phase's tolerances. The
+call at each of up to HELD_PER_KERNEL shapes, ``PathInputs``): K2, K3
+and K4 exactly, K1 within the kernels phase's tolerance. The
 ``max_abs_err`` of the kernels line is the largest over the kernels phase
 and these paths. The kernels phase also times K4 and ``F.grid_sample`` in
 turns, with the host's issue time and the L2 flushed
-(``k4_in_turns``).
+(``k4_in_turns``), and holds K4 bit for bit on the edges the main path
+never reaches (``k4_edges``: N % 4 of 1 to 3, B of 1 and 17, coordinates
+and source off their alignment, corners clamped at the right and bottom
+edges, NaN coordinates).
 
 Then one line ``{"kernels": [...]}``, the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -210,12 +214,12 @@ F32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 
 # tolerances (see the docstrings of the checks below)
 CV_ATOL = 1e-5
-# K2's coverage mask and K4's samples against their plain versions: a
-# float32 ulp of a sample coordinate near 500 px is 6e-5, so 1e-4 allows
-# one rounding step of a coordinate and fails any value wrong by a real
-# amount (0 is expected: the same float32 operations in the same order)
+# K2's coverage mask against its plain version: a float32 ulp of a
+# sample coordinate near 500 px is 6e-5, so 1e-4 allows one rounding step
+# of a coordinate and fails any value wrong by a real amount (0 is
+# expected: the same float32 operations in the same order). K4's samples
+# are held bit for bit.
 MASK_ATOL = 1e-4
-GATHER_ATOL = 1e-4
 MESH_ATOL_PX = 0.05
 # the model input resized on the card against the CPU: the same filter,
 # summed in another order (values in [-1, 1])
@@ -656,8 +660,9 @@ def k4_entry(st, res, clip, launches):
         key = "planes" if planes else "interleaved"
         errs[key] = float((g - r).abs().max())
         dead[key] = int((g[~live] != 0).any(-1).sum())
-        require(errs[key] <= GATHER_ATOL,
-                f"patch_gather {key}: max|d| {errs[key]} vs plain")
+        require(torch.equal(g, r),
+                f"patch_gather {key}: max|d| {errs[key]} vs plain (0 "
+                "expected)")
         require(dead[key] == 0, f"patch_gather {key}: {dead[key]} nonzero "
                                 "dead px")
     npix = B2 * size[0] * size[1]
@@ -681,10 +686,13 @@ def k4_entry(st, res, clip, launches):
             im, x, y, size),
         lambda: F.grid_sample(img, grid, mode="bilinear",
                               padding_mode="zeros", align_corners=False))
+    edges = k4_edges(im.device, H, W)
     return {"name": "patch_gather", "route": "cuda",
             "source": "stabstitch2_tpu_torch/csrc/patch_gather.cu",
             "replaces": "stabstitch2_tpu/ops/pallas_gather.py:72",
-            "launches": launches, "max_abs_err": max(errs.values()),
+            "launches": launches,
+            "max_abs_err": max(*errs.values(),
+                               *(r["max_abs_err"] for r in edges)),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": library_ms,
             "library_note": "F.grid_sample(bilinear, zeros, "
@@ -693,10 +701,84 @@ def k4_entry(st, res, clip, launches):
                             "gather and combine per pixel, with another "
                             "border rule and float input",
             "max_abs_err_by_layout": errs, "dead_nonzero": dead,
-            "atol": GATHER_ATOL, "images": B2, "source_hw": [int(H), int(W)],
+            "atol": 0.0, "edge_cases": edges,
+            "images": B2, "source_hw": [int(H), int(W)],
             "canvas_hw": list(size), "live_frac": n_live / npix,
             "bytes": nbytes, "ops": ops, "roofline_share": bms / ms,
             "in_turns_with_grid_sample": turns}
+
+
+# K4's edges that the main path's canvas (N % 4 == 0, fresh tensors)
+# never reaches: B, the raster (N % 4 of 1, 2, 3), the coordinates one
+# float into their buffers (4-byte but not 16-byte aligned) and the source
+# one byte into its (first and last bytes not word-aligned)
+K4_EDGE_CASES = ((1, (97, 131), True, False),
+                 (17, (98, 131), True, True),
+                 (2, (101, 133), False, False),
+                 (3, (97, 129), False, True))
+
+
+def offset_copy(a):
+    """A contiguous copy of ``a`` one element into a larger buffer."""
+    import torch
+
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    view = buf[1:].view(a.shape)
+    view.copy_(a)
+    return view
+
+
+def k4_edges(device, H, W):
+    """K4 against its plain version bit for bit, in both layouts, on
+    K4_EDGE_CASES: random H x W sources sampled on a raster spread 10%
+    past every side (corners clamped at the right and bottom edges, pixels
+    dead beyond them), with NaN coordinates (exact 0). Quads of B = 17
+    straddle two images. One row per case; raises on any difference."""
+    import numpy as np
+    import torch
+
+    from stabstitch2_tpu_torch.ops import patch_gather_cuda
+    from stabstitch2_tpu_torch.ops.interp import support_mask
+
+    rng = np.random.default_rng(16)
+    rows = []
+    for B, (oh, ow), off_xy, off_im in K4_EDGE_CASES:
+        N = oh * ow
+        im = torch.from_numpy(rng.integers(0, 256, (B, H, W, 3),
+                                           dtype=np.uint8)).to(device)
+        x = (np.tile(np.linspace(-1.1, 1.1, ow), oh)
+             + rng.normal(0, 0.004, (B, N))).astype(np.float32)
+        y = (np.repeat(np.linspace(-1.1, 1.1, oh), ow)
+             + rng.normal(0, 0.004, (B, N))).astype(np.float32)
+        x[:, ::97] = np.nan
+        x, y = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+        if off_xy:
+            x, y = offset_copy(x), offset_copy(y)
+        if off_im:
+            im = offset_copy(im)
+        live = support_mask(x, y, H, W)
+        errs = {}
+        for planes in (False, True):
+            got = patch_gather_cuda.bilinear_sample_patch_u8_cuda(
+                im, x, y, (oh, ow), planes=planes)
+            ref = patch_gather_cuda.patch_gather_plain(im, x, y, (oh, ow),
+                                                       planes)
+            torch.cuda.synchronize()
+            g = torch.stack(got[:3], -1) if planes else got[0]
+            r = torch.stack(ref[:3], -1) if planes else ref[0]
+            key = "planes" if planes else "interleaved"
+            errs[key] = float((g - r).abs().max())
+            require(torch.equal(g, r) and not bool(got[-1]),
+                    f"patch_gather {key} at B={B}, {oh}x{ow}, offset "
+                    f"coordinates {off_xy}, offset source {off_im}: max|d| "
+                    f"{errs[key]} vs plain (0 expected)")
+        rows.append({"B": B, "raster": [oh, ow], "n_mod_4": N % 4,
+                     "xy_ptr_mod_16": x.data_ptr() % 16,
+                     "source_ptr_mod_4": im.data_ptr() % 4,
+                     "live_frac": float(live.float().mean()),
+                     "max_abs_err": max(errs.values()),
+                     "max_abs_err_by_layout": errs})
+    return rows
 
 
 def k4_in_turns(k4, library, rounds: int = K4_ROUNDS, iters: int = 50):
@@ -1526,7 +1608,8 @@ def kernel_wrappers():
     the modules that bound the wrapper by name at import, its plain
     version, and the tolerance of the wrapper against the plain version
     as a function of the plain result's largest magnitude (that of the
-    kernels phase: 0 for the spline kernels K2 and K3)."""
+    kernels phase: 0 for K2, K3 and K4, which round as their plain
+    versions do)."""
     from stabstitch2_tpu_torch.models import spatial, temporal
     from stabstitch2_tpu_torch.ops import (corr_cuda, fused_warp_cuda,
                                            patch_gather_cuda, tps_coords_cuda)
@@ -1543,7 +1626,7 @@ def kernel_wrappers():
                        tps_coords_cuda.tps_coords_plain, lambda amax: 0.0),
         "patch_gather": (patch_gather_cuda, "bilinear_sample_patch_u8_cuda",
                          (compositor,), patch_gather_cuda.patch_gather_plain,
-                         lambda amax: GATHER_ATOL),
+                         lambda amax: 0.0),
     }
 
 
@@ -1998,10 +2081,12 @@ def phase_metric(device, tmp):
     frame count in at capture (captured at METRIC_FRAMES, replayed on the
     METRIC_SHORT-frame video), must fail that bit-for-bit gate. A trace of
     one video each way gives the card's idle share. K1 and K3 are held
-    against their plain versions on the warm-up's inputs; with float32
-    trunks the card's metrics lie within METRIC_RTOL of the port's on the
-    CPU over CPU_FRAMES frames; ``cli metric --out_json`` writes its
-    report."""
+    against their plain versions on the warm-up's inputs. With float32
+    trunks the program at METRIC_SHORT frames lies within METRIC_RTOL of
+    ``--eager_motion`` (whose tail chunk runs at its true batch; the
+    largest gap per score is printed), and the card's metrics within
+    METRIC_RTOL of the port's on the CPU over CPU_FRAMES frames; ``cli
+    metric --out_json`` writes its report."""
     import dataclasses
 
     import numpy as np
@@ -2174,10 +2259,25 @@ def phase_metric(device, tmp):
             "cpu_ops", "top5_device_ms")}
     plain = held.hold(("cost_volume", "tps_coords"), "metric")
 
+    # float32 trunks: the program at METRIC_SHORT frames (padded to the
+    # bucket) against --eager_motion (the tail chunk at its true batch)
+    f32 = init_stitcher(rng_seed=0, compute_dtype=torch.float32,
+                        chunk=st.chunk, device=device)
+    f32_eager = dataclasses.replace(f32, fused_motion=False)
+    short = (v1[:METRIC_SHORT], v2[:METRIC_SHORT])
+    evaluate_video(f32, *short, upload=up)     # eager first call, capture
+    f32_short = {"program": evaluate_video(f32, *short, upload=up),
+                 "eager": evaluate_video(f32_eager, *short, upload=up)}
+    f32_short["rel_gap"] = rel_gaps(f32_short["program"], f32_short["eager"])
+    f32_short["abs_gap"] = {k: abs(f32_short["program"][k]
+                                   - f32_short["eager"][k])
+                            for k in f32_short["eager"]}
+    require(max(f32_short["rel_gap"].values()) <= METRIC_RTOL,
+            f"float32, {METRIC_SHORT} frames, program vs --eager_motion: "
+            f"relative gaps {f32_short['rel_gap']}")
+
     n = CPU_FRAMES
-    card = evaluate_video(init_stitcher(rng_seed=0,
-                                        compute_dtype=torch.float32,
-                                        device=device), v1[:n], v2[:n])
+    card = evaluate_video(f32, v1[:n], v2[:n])
     cpu = evaluate_video(init_stitcher(rng_seed=0,
                                        compute_dtype=torch.float32,
                                        device="cpu"), v1[:n], v2[:n])
@@ -2200,6 +2300,7 @@ def phase_metric(device, tmp):
             "launches": launches, "runs": runs,
             "captured_vs_eager_rel_gap": rel_eager,
             "short_vs_eager_rel_gap": short_vs_eager,
+            "f32_short_vs_eager": f32_short,
             "short_frames": METRIC_SHORT, "bucket": bucket,
             "capture_seconds_by_bucket": capture_s,
             "reserved_bytes_after_empty_cache": reserved,
@@ -3064,7 +3165,7 @@ def kernels_on(card, warp):
     got = patch_gather_cuda.bilinear_sample_patch_u8_cuda(im, x, y, size)
     ref = patch_gather_cuda.patch_gather_plain(im, x, y, size, False)
     err = float((got[0] - ref[0]).abs().max())
-    require(got[0].device == card and err <= GATHER_ATOL,
+    require(got[0].device == card and torch.equal(got[0], ref[0]),
             f"patch_gather on {card}: {err}")
     out["patch_gather"] = err
     return out

@@ -16,20 +16,32 @@ On a CPU tensor the wrapper runs :func:`patch_gather_plain`; on a CUDA
 tensor it launches the kernel or raises. The kernel has no backward, so a
 CUDA launch with grad enabled and coordinates that require grad raises
 rather than drop the gradient.
+
+On the card a call issues the one kernel and nothing else, so that the
+host keeps ahead of it: the output is one ``torch.empty``; the stream is
+read as a raw handle (``torch._C._cuda_getCurrentRawStream``, the call
+PyTorch's own generated code makes, which builds no ``Stream`` object
+as ``torch.cuda.current_stream`` does); the C entry point makes the card
+current only if it is not, and restores it; and ``viol`` is one False
+tensor per card (:func:`_false`).
 """
 
 from __future__ import annotations
 
 import collections
-import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from stabstitch2_tpu_torch.ops.interp import bilinear_sample_patch_u8, support_mask
+from stabstitch2_tpu_torch.utils.cuda_build import check_launch, load_kernels
 
 # launches of the kernel (plain integer under one key)
 LAUNCHES: collections.Counter = collections.Counter()
+# the largest B * N the kernel's 32-bit flat pixel index takes
+MAX_PIXELS = 2**31 - 1 - 4
+# viol per card (_false)
+_FALSE: Dict[torch.device, torch.Tensor] = {}
 
 
 def patch_gather_plain(im: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
@@ -63,6 +75,21 @@ def _check(im, x, y, out_hw):
         raise ValueError("im, x and y must share a device")
 
 
+def _false(device: torch.device) -> torch.Tensor:
+    """The card's shared False, an inference tensor: an in-place write to
+    it outside ``inference_mode`` raises (PyTorch checks the version
+    counter after the write, so a caller that writes to it fails at
+    once; no caller does). One made while a CUDA graph is captured lives
+    in the graph's pool, so it is not kept."""
+    viol = _FALSE.get(device)
+    if viol is None:
+        with torch.inference_mode():
+            viol = torch.zeros((), dtype=torch.bool, device=device)
+        if not torch.cuda.is_current_stream_capturing():
+            _FALSE[device] = viol
+    return viol
+
+
 def bilinear_sample_patch_u8_cuda(im: torch.Tensor, x: torch.Tensor,
                                   y: torch.Tensor, out_hw: Tuple[int, int],
                                   planes: bool = False):
@@ -70,7 +97,8 @@ def bilinear_sample_patch_u8_cuda(im: torch.Tensor, x: torch.Tensor,
 
     im: [B, H, W, 3] uint8; x, y: [B, oh*ow] float32, an (oh, ow) raster.
     Returns ([B, oh, ow, 3] float32, viol), or with ``planes`` the
-    B, G, R planes [B, oh, ow] and viol; ``viol`` is always False.
+    B, G, R planes [B, oh, ow] and viol; ``viol`` is always False (on the
+    card one tensor shared by every call, see :func:`_false`).
     """
     _check(im, x, y, out_hw)
     if im.device.type == "cpu":
@@ -82,27 +110,24 @@ def bilinear_sample_patch_u8_cuda(im: torch.Tensor, x: torch.Tensor,
             "bilinear_sample_patch_u8_cuda: the patch-gather kernel has no "
             "backward, and x or y requires grad; sample a float image or "
             "call under torch.no_grad()")
-    from stabstitch2_tpu_torch.utils.cuda_build import check_launch, load_kernels
-
     if not (im.is_contiguous() and x.is_contiguous() and y.is_contiguous()):
         raise ValueError("bilinear_sample_patch_u8_cuda needs contiguous inputs")
     B, H, W, _ = im.shape
     oh, ow = out_hw
     N = oh * ow
-    shape = (B, 3, oh, ow) if planes else (B, oh, ow, 3)
-    out = torch.empty(shape, dtype=torch.float32, device=im.device)
+    if B * N > MAX_PIXELS:
+        raise ValueError(f"bilinear_sample_patch_u8_cuda: {B} x {N} pixels, "
+                         f"more than the kernel's {MAX_PIXELS}")
+    dev = im.device
+    out = torch.empty((B, 3, oh, ow) if planes else (B, oh, ow, 3),
+                      dtype=torch.float32, device=dev)
     if out.numel():
-        lib = load_kernels()
-        with torch.cuda.device(im.device):
-            stream = torch.cuda.current_stream(im.device).cuda_stream
-            err = lib.stabstitch_patch_gather(
-                ctypes.c_void_p(im.data_ptr()), ctypes.c_void_p(x.data_ptr()),
-                ctypes.c_void_p(y.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-                B, H, W, N, int(planes), im.device.index,
-                ctypes.c_void_p(stream))
+        err = load_kernels().stabstitch_patch_gather(
+            im.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(),
+            B, H, W, N, int(planes), dev.index,
+            torch._C._cuda_getCurrentRawStream(dev.index))
         check_launch("patch_gather_kernel", err)
         LAUNCHES["patch_gather"] += 1
-    viol = torch.zeros((), dtype=torch.bool, device=im.device)
     if planes:
-        return out[:, 0], out[:, 1], out[:, 2], viol
-    return out, viol
+        return out[:, 0], out[:, 1], out[:, 2], _false(dev)
+    return out, _false(dev)

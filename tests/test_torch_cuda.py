@@ -31,6 +31,7 @@ at capture) fail that gate.
 
 import collections
 import itertools
+import json
 import warnings
 
 import numpy as np
@@ -226,15 +227,70 @@ def test_k3_then_k4_equals_k2(cuda_device):
         torch.testing.assert_close(g, r, atol=0, rtol=0)
 
 
+def _offset_copy(a):
+    """A contiguous copy of ``a`` one element into a larger buffer: for
+    float32 a data_ptr that is 4-byte but not 16-byte aligned, for uint8
+    one whose first and last bytes are not word-aligned."""
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    view = buf[1:].view(a.shape)
+    view.copy_(a)
+    assert view.is_contiguous() and view.storage_offset() == 1
+    return view
+
+
+def _edge_coords(B, out_size, device, seed=0):
+    """A raster spread 10% past every side of the source, with noise, so
+    that corners clamp at the right and bottom edges (and pixels die past
+    them)."""
+    rng = np.random.default_rng(seed)
+    oh, ow = out_size
+    x = np.tile(np.linspace(-1.1, 1.1, ow, dtype=np.float32), oh)
+    y = np.repeat(np.linspace(-1.1, 1.1, oh, dtype=np.float32), ow)
+    x = x + rng.normal(0, 0.004, (B, oh * ow))
+    y = y + rng.normal(0, 0.004, (B, oh * ow))
+    return (torch.from_numpy(x.astype(np.float32)).to(device),
+            torch.from_numpy(y.astype(np.float32)).to(device))
+
+
+# B, raster (N % 4 in the comment), mesh shift (None: _edge_coords), and
+# whether the coordinates and the source sit one element into a buffer
+PATCH_GATHER_CASES = {
+    "144x256": (3, (144, 256), 10.0, False, False),       # 0
+    "97x131": (3, (97, 131), 10.0, False, False),         # 3
+    "all_dead": (3, (64, 64), 900.0, False, False),       # 0
+    "97x129": (3, (97, 129), 10.0, False, False),         # 1
+    "98x131": (3, (98, 131), 10.0, False, False),         # 2
+    "B1_offset_xy": (1, (97, 131), 10.0, True, False),    # 3
+    "B17_offset_xy_im": (17, (98, 131), 10.0, True, True),  # 2
+    "edges": (2, (101, 133), None, False, False),         # 1
+    "edges_B17_offset": (17, (97, 131), None, True, True),  # 3
+}
+
+
 @pytest.mark.parametrize("planes", [False, True])
-@pytest.mark.parametrize("shift,out_size", [(10.0, (144, 256)),
-                                            (10.0, (97, 131)),
-                                            (900.0, (64, 64))])
-def test_patch_gather_kernel(cuda_device, planes, shift, out_size):
+@pytest.mark.parametrize("case", list(PATCH_GATHER_CASES))
+def test_patch_gather_kernel(cuda_device, planes, case):
+    """K4 against its plain version bit for bit: rasters with N % 4 of 0 to
+    3, B of 1, 2, 3 and 17 (quads that straddle two images), coordinates
+    at a 4-byte-but-not-16-byte-aligned data_ptr, a source whose first
+    and last bytes are not word-aligned, corners clamped at the right and
+    bottom edges, NaN coordinates (exact 0) and a raster wholly dead."""
+    B, out_size, shift, offset_xy, offset_im = PATCH_GATHER_CASES[case]
     span = (140, 250)
-    im, T, norm = _warp_case(cuda_device, mesh_shift=shift, span=span)
-    x, y = tps_coords_cuda.tps_coords_plain(T, norm, out_size, grid_span=span)
+    im, T, norm = _warp_case(cuda_device, B=B, span=span,
+                             mesh_shift=10.0 if shift is None else shift)
+    if shift is None:
+        x, y = _edge_coords(B, out_size, cuda_device)
+    else:
+        x, y = tps_coords_cuda.tps_coords_plain(T, norm, out_size,
+                                                grid_span=span)
     x[:, ::97] = float("nan")     # NaN coordinates are dead: exact 0
+    if offset_xy:
+        x, y = _offset_copy(x), _offset_copy(y)
+        assert x.data_ptr() % 16 != 0 and y.data_ptr() % 16 != 0
+    if offset_im:
+        im = _offset_copy(im)
+        assert im.data_ptr() % 4 != 0
     n = patch_gather_cuda.LAUNCHES["patch_gather"]
     got = patch_gather_cuda.bilinear_sample_patch_u8_cuda(im, x, y, out_size,
                                                           planes=planes)
@@ -245,9 +301,51 @@ def test_patch_gather_kernel(cuda_device, planes, shift, out_size):
         torch.testing.assert_close(g, r, atol=0, rtol=0)
     assert not bool(got[-1])
     out = torch.stack(got[:3], -1) if planes else got[0]
-    assert not bool(out.reshape(3, -1, 3)[:, ::97].any())
-    if shift > 100:
+    assert not bool(out.reshape(B, -1, 3)[:, ::97].any())
+    if shift is not None and shift > 100:
         assert not bool(out.any())
+    if shift is None:   # live up to the last row and column of the source
+        from stabstitch2_tpu_torch.ops.interp import support_mask
+
+        H, W = im.shape[1:3]
+        xf = (x + 1) * (W / 2)
+        yf = (y + 1) * (H / 2)
+        live = support_mask(x, y, H, W)
+        assert bool((live & (xf.floor() == W - 2)).any())
+        assert bool((live & (yf.floor() == H - 2)).any())
+        assert bool(out.any())
+
+
+def test_patch_gather_launches_one_kernel(cuda_device, tmp_path):
+    """One call of K4's wrapper on the card puts exactly one operation on
+    the card, the kernel, in a torch.profiler trace; its ``viol`` is one
+    shared False per card, and an in-place write to it raises (PyTorch
+    checks after the write, so the test writes the value it holds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    im, T, norm = _warp_case(cuda_device)
+    x, y = tps_coords_cuda.tps_coords_plain(T, norm, (144, 256),
+                                            grid_span=(140, 250))
+    for planes in (False, True):
+        first = patch_gather_cuda.bilinear_sample_patch_u8_cuda(
+            im, x, y, (144, 256), planes=planes)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            got = patch_gather_cuda.bilinear_sample_patch_u8_cuda(
+                im, x, y, (144, 256), planes=planes)
+            torch.cuda.synchronize()
+        path = str(tmp_path / f"k4_{planes}.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        device = [e["name"] for e in events if e.get("ph") == "X" and
+                  e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        assert device == ["patch_gather_kernel"], device
+        assert got[-1] is first[-1] and not bool(got[-1])
+    with pytest.raises(RuntimeError, match="[Ii]nference"):
+        got[-1].fill_(False)
+    assert not bool(got[-1])
 
 
 def test_stitch_route_b_launches_k3_and_k4_not_k2(cuda_device):

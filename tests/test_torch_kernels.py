@@ -35,6 +35,7 @@ from stabstitch2_tpu.ops.tps import tps_params as j_tps_params
 from stabstitch2_tpu.ops.tps import tps_sample_coords as j_tps_sample_coords
 from stabstitch2_tpu_torch.ops import (corr_cuda, fused_warp_cuda,
                                        patch_gather_cuda, tps_coords_cuda)
+from stabstitch2_tpu_torch.ops.interp import support_mask
 from stabstitch2_tpu_torch.ops.tps import tps_sample_coords
 from stabstitch2_tpu_torch.utils import cuda_build
 
@@ -301,6 +302,50 @@ class TestPatchGatherPlain:
             for p, q in zip(a[:-1], b[:-1]):
                 np.testing.assert_array_equal(p.numpy(), q.numpy())
         assert dict(patch_gather_cuda.LAUNCHES) == before
+
+    @pytest.mark.parametrize("out_hw,rem", [((45, 61), 1), ((46, 61), 2),
+                                            ((47, 61), 3)])
+    @pytest.mark.parametrize("layout", ["flat", "planes"])
+    def test_ragged_raster_offset_view_matches_pallas(self, out_hw, rem,
+                                                      layout):
+        """The kernel's ragged edges on the CPU path: rasters with N % 4 of
+        1, 2 and 3, coordinates in contiguous views one float into their
+        buffers (4-byte but not 16-byte aligned on the card), spread past
+        the right and bottom edges so that corners clamp there. The rasters
+        pad to the class's 48x64 one in the Pallas kernel, whose compile
+        they share."""
+        B = self.B
+        oh, ow = out_hw
+        N = oh * ow
+        assert N % 4 == rem
+        rng = np.random.default_rng(rem)
+        im = rng.integers(0, 256, (B, self.H, self.W, 3), dtype=np.uint8)
+        xx = np.tile(np.linspace(-0.9, 1.3, ow, dtype=np.float32), oh)
+        yy = np.repeat(np.linspace(-0.8, 1.2, oh, dtype=np.float32), ow)
+        x = (xx + rng.normal(0, 0.01, (B, N))).astype(np.float32)
+        y = (yy + rng.normal(0, 0.01, (B, N))).astype(np.float32)
+        bx, by = torch.zeros(B * N + 1), torch.zeros(B * N + 1)
+        xv, yv = bx[1:].view(B, N), by[1:].view(B, N)
+        xv.copy_(t(x))
+        yv.copy_(t(y))
+        assert xv.is_contiguous() and xv.storage_offset() == 1
+        planes = layout == "planes"
+        ref = bilinear_sample_patch_u8_pallas(
+            jnp.asarray(im), jnp.asarray(x), jnp.asarray(y), out_hw,
+            interpret=True, combine_layout=layout)
+        got = patch_gather_cuda.bilinear_sample_patch_u8_cuda(
+            t(im), xv, yv, out_hw, planes=planes)
+        assert not bool(ref[-1]) and not bool(got[-1])
+        if planes:
+            ref = np.stack([np.asarray(p) for p in ref[:3]], -1)
+            got = torch.stack(got[:3], -1)
+        else:
+            ref, got = np.asarray(ref[0]), got[0]
+        assert got.shape == (B, oh, ow, 3)
+        live = np.asarray(support_mask(t(x), t(y), self.H, self.W))
+        assert live.any() and not live.all()
+        np.testing.assert_array_equal(got.numpy().reshape(B, N, 3)[~live], 0)
+        np.testing.assert_allclose(got.numpy(), ref, atol=1e-2)
 
     def test_rejects_bad_inputs(self):
         im, (x, y) = self._im(), self._coords()
