@@ -66,8 +66,9 @@ Phases, each printing one JSON line with its seconds:
    ones and the eager launches of K1 and K2 the fused ones, the view loads went through the
    loader phase's decoder, the bf16 smooth meshes lie within
    BF16_MESH_BOUND_PX of a float32 stitcher's, and one ``stitch_begin``
-   waits for the card once in either upload mode (the canvas fetch, by
-   ``torch.cuda.set_sync_debug_mode``).
+   waits for the card once in either upload mode (the canvas fetch: one
+   ``wait`` span, no synchronizing call that
+   ``torch.cuda.set_sync_debug_mode`` reports).
 8. ``trace``: one of those videos through ``--trace_dir``
    (``torch.profiler``), in bulk (fused and eager) and in stream mode;
    each Chrome trace
@@ -1086,28 +1087,37 @@ def mesh_gap(a, b) -> float:
                for k in ("smooth_mesh1", "smooth_mesh2"))
 
 
-def begin_syncs(st, arrays):
-    """The host waits for the card inside one ``stitch_begin`` without the
-    phase marks' waits, as ``torch.cuda.set_sync_debug_mode("warn")``
-    reports them: only the canvas fetch should remain."""
+def begin_waits(st, arrays):
+    """The host waits for the card inside one ``stitch_begin`` at the
+    stitcher's settings: the ``wait`` spans (``compositor.wait``, on
+    events) under a host-only profiler, and the synchronizing calls that
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports. Only the canvas
+    fetch should remain: one ``wait`` and no synchronizing call."""
     import warnings
 
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
-    st.sync_phases = False
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
+    from stabstitch2_tpu_torch.utils import profiling
+
+    profiling.clear_table()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with profile(activities=[ProfilerActivity.CPU]):
                 pending = st.stitch_begin(*arrays)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        st.stitch_finish(pending)
-    finally:
-        st.sync_phases = True
-    return [str(w.message).splitlines()[0] for w in caught
-            if "called a synchronizing" in str(w.message)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    waits = profiling.table().spans.get("wait")
+    st.stitch_finish(pending)
+    return {"waits": waits.count if waits else 0,
+            "synchronizing": [str(w.message).splitlines()[0] for w in caught
+                              if "called a synchronizing" in str(w.message)]}
+
+
+def one_wait(waits) -> bool:
+    return waits["waits"] == 1 and not waits["synchronizing"]
 
 
 def write_cli_data(tmp) -> str:
@@ -1384,15 +1394,15 @@ def phase_cli(device, tmp, data):
         f32_ms[name] = r.ms
     require(max(gaps.values()) <= BF16_MESH_BOUND_PX,
             f"bf16 vs float32 smooth meshes {gaps} px > {BF16_MESH_BOUND_PX}")
-    syncs = begin_syncs(st, loaded["clip0"])
-    require(len(syncs) == 1, f"one wait in stitch_begin (the canvas fetch): "
+    syncs = begin_waits(st, loaded["clip0"])
+    require(one_wait(syncs), f"one wait in stitch_begin (the canvas fetch): "
                              f"{syncs}")
     st.upload_mode = "stream"
     try:
-        syncs_stream = begin_syncs(st, loaded["clip0"])
+        syncs_stream = begin_waits(st, loaded["clip0"])
     finally:
         st.upload_mode = "bulk"
-    require(len(syncs_stream) == 1, f"one wait in a stream stitch_begin: "
+    require(one_wait(syncs_stream), f"one wait in a stream stitch_begin: "
                                     f"{syncs_stream}")
     frames = CLI_VIDEOS * CLI_FRAMES
 
@@ -3116,15 +3126,15 @@ def devices_stitch(devices, data, tmp, tag):
                           f"{len(devices)} devices equal one device's")
         st.upload_mode = mode
         try:
-            syncs = begin_syncs(st, loaded[sorted(loaded)[0]])
+            syncs = begin_waits(st, loaded[sorted(loaded)[0]])
         finally:
             st.upload_mode = "bulk"
-        require(len(syncs) == 1, f"{tag} {mode}: one wait per stitch_begin "
+        require(one_wait(syncs), f"{tag} {mode}: one wait per stitch_begin "
                                  f"(the canvas fetch): {syncs}")
         out[mode] = {"bit_equal_to_one_device": True, "launches": launches,
                      "graph_replays": replays,
                      "fps": frames / wall, "fps_one_device": frames / one_s,
-                     "stitch_begin_waits": len(syncs)}
+                     "stitch_begin_waits": syncs}
     return out
 
 

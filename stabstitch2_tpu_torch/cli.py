@@ -23,9 +23,11 @@ Shared flags: [--reference_pth_dir <dir>] [--preset ssd|tra]
 [--seed N] [--eager_motion] [--fused_motion]; ``--trace_dir`` traces
 ``stitch`` only, the other commands ignore it. As in the JAX CLI, the
 motion and smoothing of a video run as captured programs (CUDA graphs on
-the card, ``utils/graphs.py``); ``--eager_motion`` runs them eagerly, with
-the per-phase attribution of the spatial and temporal ms, and
-``--fused_motion``, the default, is accepted. ``--n_devices N`` deals the chunks of every video over N cards
+the card, ``utils/graphs.py``); ``--eager_motion`` runs them eagerly, and
+``--fused_motion``, the default, is accepted. The per-video phase ms read
+the card's time from CUDA events, which no phase waits for;
+``--no_phase_sync`` reads the host's clock at each phase instead (the
+times the phases were enqueued). ``--n_devices N`` deals the chunks of every video over N cards
 (N replicas on the CPU with ``--device cpu``), with the frames of one
 card; it raises when fewer cards are visible.
 
@@ -436,8 +438,9 @@ def add_stitcher_args(p: argparse.ArgumentParser, download: str,
                    help="frame upload packing: i420 (1.5 bytes per pixel, "
                         "BGR for odd sizes) or bgr; default " + upload)
     p.add_argument("--no_phase_sync", action="store_true",
-                   help="enqueue each video without the per-phase waits "
-                        "(the phase ms become enqueue times)")
+                   help="report each phase's ms on the host's clock (the "
+                        "time it was enqueued) instead of the card's time "
+                        "from CUDA events; neither waits for the card")
     p.add_argument("--trace_dir", default=None,
                    help="stitch: write a torch.profiler Chrome trace of each "
                         "video's stitch_begin (host and card) here; the "
@@ -452,7 +455,7 @@ def add_stitcher_args(p: argparse.ArgumentParser, download: str,
                         "accepted for compatibility")
     p.add_argument("--eager_motion", action="store_true",
                    help="run the motion and smoothing eagerly, kernel by "
-                        "kernel, with the per-phase spatial/temporal ms")
+                        "kernel")
     add_device_args(p)
 
 

@@ -31,6 +31,7 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 
 from stabstitch2_tpu_torch.config import MODEL_H, MODEL_W
+from stabstitch2_tpu_torch.utils.profiling import annotate
 
 
 def _load_image(path: str, width: int = MODEL_W,
@@ -207,7 +208,9 @@ def batch_iterator(dataset, batch_size: int, seed: int = 0,
     ahead of a capped epoch would draw for batches nobody takes, as many
     as the host's speed lets it, and the next epoch's samples would depend
     on that speed: ``limit`` (the loops pass their steps per epoch) keeps
-    it to the batches the epoch takes."""
+    it to the batches the epoch takes. Under a profiler the consumer's
+    wait for each batch is a ``loader_wait`` span
+    (``utils/profiling.py``)."""
     order = np.arange(len(dataset))
     np.random.default_rng(seed).shuffle(order)
     stops = len(order) - len(order) % batch_size
@@ -242,16 +245,13 @@ def batch_iterator(dataset, batch_size: int, seed: int = 0,
                     return
         except Exception as e:  # noqa: BLE001 - raised in the consumer
             put(e)
-            return
-        put(None)
 
     t = threading.Thread(target=produce, daemon=True)
     t.start()
     try:
-        while True:
-            item = q.get()
-            if item is None:
-                return
+        for _ in range(0, stops, batch_size):
+            with annotate("loader_wait"):
+                item = q.get()
             if isinstance(item, Exception):
                 raise item
             yield item

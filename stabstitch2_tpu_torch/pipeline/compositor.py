@@ -36,6 +36,10 @@ online stitcher, the N-view chain and the metric harness share:
 host buffers (page-locked on a card, copied with ``non_blocking=True``)
 and returns at once; :func:`composite_finish` waits for the copies and
 assembles the frames. A caller can begin the next video in between.
+
+Every host wait for the card on the stitching paths goes through
+:func:`wait` (on events; :func:`fetch` for tensors), a ``wait`` span
+under a profiler (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ from stabstitch2_tpu_torch.ops.tps import (tps_params, tps_sample_coords,
                                            tps_warp_with_mask)
 from stabstitch2_tpu_torch.ops.yuv import (bgr_planes_to_yuv420, bgr_to_yuv420,
                                            bgr_u8_to_yuv420)
+from stabstitch2_tpu_torch.utils.profiling import annotate
 from stabstitch2_tpu_torch.utils.transfer import constant, to_device
 
 
@@ -84,10 +89,11 @@ def compute_canvas(mesh1: torch.Tensor, mesh2: torch.Tensor,
                    bucket: int = 128) -> Canvas:
     """Canvas from the global extent of both views' meshes [T, GH+1, GW+1, 2].
 
-    Fetches the meshes to the host: the one wait for the device that
-    :func:`composite_begin` needs, since the canvas size sets the shapes.
+    Fetches the meshes to the host (:func:`fetch`): the one wait for the
+    device that :func:`composite_begin` needs, since the canvas size sets
+    the shapes.
     """
-    m = torch.stack([mesh1, mesh2]).detach().cpu().numpy()
+    m = fetch([torch.stack([mesh1, mesh2]).detach()], mesh1.device)[0].numpy()
     x_min, x_max = float(m[..., 0].min()), float(m[..., 0].max())
     y_min, y_max = float(m[..., 1].min()), float(m[..., 1].max())
     out_w = max(int(np.ceil(x_max - x_min)), 8)
@@ -212,26 +218,31 @@ class PendingComposite:
     host: List[torch.Tensor]    # uint8 Y, U, V [T, ..] or BGR [T, oh, ow, 3]
     canvas: Canvas
     out_format: str
-    # per card that ran chunks: its last chunk's compute is done, and
-    # every copy from it into `host` is done (none on the CPU)
+    # per card that ran chunks (`cards`): its last chunk's compute is
+    # done, and every copy from it into `host` is done (none on the CPU)
+    cards: List[torch.device]
     computed: List[torch.cuda.Event]
     copied: List[torch.cuda.Event]
 
 
-def record_event(device: torch.device) -> Optional[torch.cuda.Event]:
+def record_event(device: torch.device, timing: bool = False
+                 ) -> Optional[torch.cuda.Event]:
+    """An event on ``device``'s current stream (None on the CPU); with
+    ``timing``, one whose time a phase mark reads (``elapsed_time``)."""
     if device.type != "cuda":
         return None
-    event = torch.cuda.Event()
+    event = torch.cuda.Event(enable_timing=timing)
     event.record(torch.cuda.current_stream(device))
     return event
 
 
 def wait(events) -> None:
     """Wait for the card up to each event of ``events`` (one event, a list,
-    or None: nothing is in flight)."""
-    for event in events if isinstance(events, list) else [events]:
-        if event is not None:
-            event.synchronize()
+    or None: nothing is in flight); a ``wait`` span under a profiler."""
+    with annotate("wait"):
+        for event in events if isinstance(events, list) else [events]:
+            if event is not None:
+                event.synchronize()
 
 
 def host_buffer(shape, dtype: torch.dtype, device: torch.device
@@ -319,13 +330,14 @@ def enqueue_chunks(run: Callable, T: int, chunk: int, canvas: Canvas,
         else:
             crops = (out[:, :oh, :ow],)
         dev = crops[0].device
-        computed[dev] = record_event(dev)   # its latest chunk's compute
+        # its latest chunk's compute, timed for the phase marks
+        computed[dev] = record_event(dev, timing=True)
         copy_to_host([h[s:e] for h in host], crops)
-    copied = [record_event(d) for d in computed]
+    cards = [d for d in computed if d.type == "cuda"]
     return PendingComposite(
-        host=host, canvas=canvas, out_format=out_format,
-        computed=[e for e in computed.values() if e is not None],
-        copied=[e for e in copied if e is not None])
+        host=host, canvas=canvas, out_format=out_format, cards=cards,
+        computed=[computed[d] for d in cards],
+        copied=[record_event(d, timing=True) for d in cards])
 
 
 def composite_begin(img1, img2, smooth_mesh1: torch.Tensor,
@@ -378,22 +390,25 @@ def composite_finish(state: PendingComposite, timer=None
                      ) -> Tuple[np.ndarray, Canvas]:
     """Wait for the copies of :func:`composite_begin` and return uint8 BGR
     frames [T, oh, ow, 3] (a view of the host buffer), or packed I420
-    [T, oh*3//2, ow] for yuv420, packed here on the host.
+    [T, oh*3//2, ow] for yuv420, packed here on the host (a ``pack`` span
+    under a profiler).
 
     ``timer`` (a ``utils.profiling.PhaseTimer``) gets ``warp_fuse``, until
     each device's last chunk's compute is done, and ``download``, the
-    copies' remainder, as in the JAX package.
+    copies' remainder, as in the JAX package: on a card read from the
+    composite's own events.
     """
     wait(state.computed)
     if timer is not None:
-        timer.mark("warp_fuse", sync=False)
+        timer.mark("warp_fuse", dict(zip(state.cards, state.computed)))
     wait(state.copied)
     if timer is not None:
-        timer.mark("download", sync=False)
-    host = [h.numpy() for h in state.host]
-    if state.out_format == "yuv420":
-        return pack_i420_host(*host), state.canvas
-    return host[0], state.canvas
+        timer.mark("download", dict(zip(state.cards, state.copied)))
+    with annotate("pack"):
+        host = [h.numpy() for h in state.host]
+        if state.out_format == "yuv420":
+            return pack_i420_host(*host), state.canvas
+        return host[0], state.canvas
 
 
 def composite_video(img1, img2, smooth_mesh1: torch.Tensor,

@@ -32,7 +32,9 @@ The composite takes the batch compositor's routes
 ``fused_warp=False``. A push enqueues the composite together with the
 meshes' extent, copies both into page-locked buffers without blocking, and
 waits for the card once; only a batch whose content left the canvas is
-composited again after re-anchoring. The TPU package's overflow repair is
+composited again after re-anchoring. Under a profiler a push is the
+``push`` span, around its ``stage``, ``wait`` and ``pack`` spans
+(``utils/profiling.py``). The TPU package's overflow repair is
 not ported: the card's gathers cannot overflow.
 """
 
@@ -56,6 +58,7 @@ from stabstitch2_tpu_torch.pipeline.compositor import (Canvas,
 from stabstitch2_tpu_torch.pipeline.stitcher import model_input
 from stabstitch2_tpu_torch.pipeline.transport import transport
 from stabstitch2_tpu_torch.utils.graphs import GraphCache
+from stabstitch2_tpu_torch.utils.profiling import annotate
 from stabstitch2_tpu_torch.utils.transfer import constant
 
 
@@ -232,10 +235,12 @@ class OnlineStitcher:
         if not self._ext_fits(ext_h):
             self._reanchor(ext_h)
             planes = self._fetch(self._enqueue_composite(h1s, h2s, m1, m2))
-        planes = [p.numpy() for p in planes]
-        if self.emit_format == "i420":
-            return [pack_i420_host(*(p[i] for p in planes)) for i in range(B)]
-        return list(planes[0])
+        with annotate("pack"):
+            planes = [p.numpy() for p in planes]
+            if self.emit_format == "i420":
+                return [pack_i420_host(*(p[i] for p in planes))
+                        for i in range(B)]
+            return list(planes[0])
 
     # -- the stream ----------------------------------------------------------
 
@@ -281,6 +286,10 @@ class OnlineStitcher:
         Frames are uint8 BGR [H, W, 3] or packed I420 [H*3//2, W]; each
         crosses to the card once and the composite reads that copy.
         """
+        with annotate("push"):
+            return self._push(hi1, hi2)
+
+    def _push(self, hi1: np.ndarray, hi2: np.ndarray) -> List[np.ndarray]:
         check_frame("hi1", hi1)
         check_frame("hi2", hi2)
         s = self.s

@@ -42,10 +42,13 @@ equal one device's bit for bit.
 
 :meth:`VideoStitcher.stitch_begin` enqueues a whole video and returns
 without waiting for the device except to fetch the meshes that size the
-canvas (and, with ``sync_phases``, at the phase marks);
-:meth:`VideoStitcher.stitch_finish` collects the frames. Uploads are
-staged in page-locked memory and copied with ``non_blocking=True``; the
-staging buffers live in the pending state until the video is finished.
+canvas; :meth:`VideoStitcher.stitch_finish` collects the frames. The
+phase marks (``StitchResult.ms``) are CUDA events on a card with
+``sync_phases`` and take no wait; under a profiler the two calls are the
+``stitch_begin`` and ``stitch_finish`` spans (``utils/profiling.py``).
+Uploads are staged in page-locked memory and copied with
+``non_blocking=True``; the staging buffers live in the pending state until
+the video is finished.
 """
 
 from __future__ import annotations
@@ -138,11 +141,9 @@ class VideoStitcher:
     model_h: int = MODEL_H
     model_w: int = MODEL_W
     device: torch.device = torch.device("cuda")
-    # True: synchronize at each phase mark, so StitchResult.ms attributes
-    # device time to phases (reference-style). False: enqueue the whole
-    # video without those waits (the phase times become enqueue times),
-    # so stitch_begin returns sooner and overlaps more of the previous
-    # video's finish.
+    # True: StitchResult.ms reads the card's time of each phase (CUDA
+    # events, reference-style attribution, no wait). False: the host's
+    # clock at each mark (the phase times become enqueue times).
     sync_phases: bool = True
     # 'bulk': one upload per view (and device). 'stream': per-chunk
     # uploads on a copy stream, each chunk's motion work started as its
@@ -156,9 +157,7 @@ class VideoStitcher:
     # above live on the first; the others hold copies of the motion nets.
     devices: Optional[List[torch.device]] = None
     # True: phases 1-4 of the bulk paths as captured programs, one CUDA
-    # graph per program and shape on a card (``graphs``); the phase marks
-    # 'spatial' and 'temporal' then take no wait and the time goes to
-    # 'smooth'. False: eager, with the per-phase attribution.
+    # graph per program and shape on a card (``graphs``). False: eager.
     fused_motion: bool = True
 
     def __post_init__(self):
@@ -214,6 +213,10 @@ class VideoStitcher:
         smooths them, and the composite chunks are dealt as the motion
         chunks were. The host still waits once (the canvas fetch).
         """
+        with annotate("stitch_begin"):
+            return self._begin(hi1, lo1, hi2, lo2)
+
+    def _begin(self, hi1, lo1, hi2, lo2) -> _PendingStitch:
         if self.upload_mode not in ("bulk", "stream"):
             raise ValueError(f"upload_mode {self.upload_mode!r}: 'bulk' or "
                              "'stream'")
@@ -307,7 +310,7 @@ class VideoStitcher:
         chunk lists."""
         mh, mw = self.model_h, self.model_w
         motion = self._motion
-        timer.mark("upload", sync=False)    # the copies run inside 'spatial'
+        timer.mark("upload")    # the copies run inside 'spatial'
         frames1, frames2, sm1, sm2, f1, f2 = [], [], [], [], [], []
         with annotate("spatial"):
             for k, (a, b) in enumerate(self.upload_chunks((hi1, hi2),
@@ -400,7 +403,7 @@ class VideoStitcher:
         16-frame bucket (captured on a card), else eagerly at the true T;
         no waits either way. ``timer`` marks the phases ``spatial`` (the
         spatial motion and the temporal features), ``temporal`` and
-        ``smooth``; with ``fused_motion`` only ``smooth`` waits."""
+        ``smooth``."""
         graphs = self.graphs if self.fused_motion else None
         return self._smooth(*self.motions(l1, l2, graphs, timer), timer,
                             graphs)
@@ -421,11 +424,11 @@ class VideoStitcher:
                                    for k, (a, b) in enumerate(zip(c1, c2))))
             smotion1, smotion2 = motion.gather(m1), motion.gather(m2)
         if timer is not None:
-            timer.mark("spatial", sync=graphs is None)
+            timer.mark("spatial")
         with annotate("temporal"):
             tmotion1, tmotion2 = motion.temporal_from_features(f1, f2, graphs)
         if timer is not None:
-            timer.mark("temporal", sync=graphs is None)
+            timer.mark("temporal")
         return smotion1, smotion2, tmotion1, tmotion2
 
     def smooth_program(self):
@@ -472,9 +475,15 @@ class VideoStitcher:
         return smooth
 
     def stitch_finish(self, pending: _PendingStitch) -> StitchResult:
-        """Collect the frames enqueued by :meth:`stitch_begin`."""
+        """Collect the frames enqueued by :meth:`stitch_begin`; its phase
+        marks are read once the copies are waited for."""
+        with annotate("stitch_finish"):
+            return self._finish(pending)
+
+    def _finish(self, pending: _PendingStitch) -> StitchResult:
         timer = pending.timer
         frames, canvas = composite_finish(pending.composite, timer=timer)
+        timer.resolve()
         timer.fps["composite"] = pending.T / max(
             time.perf_counter() - timer.t0, 1e-9)
         smooth = pending.smooth

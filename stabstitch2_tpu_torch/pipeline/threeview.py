@@ -36,11 +36,12 @@ from stabstitch2_tpu_torch.pipeline.compositor import (PendingComposite,
                                                        chunk_frames,
                                                        clip_and_convert,
                                                        composite_finish,
-                                                       enqueue_chunks,
+                                                       enqueue_chunks, fetch,
                                                        fused_route,
                                                        plan_canvas,
                                                        scale_meshes)
 from stabstitch2_tpu_torch.pipeline.stitcher import model_input
+from stabstitch2_tpu_torch.utils.profiling import annotate
 from stabstitch2_tpu_torch.utils.transfer import constant
 
 
@@ -72,7 +73,8 @@ def chain_meshes(pair_meshes: List[Tuple[torch.Tensor, torch.Tensor]],
 
     pair_meshes[j] = (mesh of view j, mesh of view j+1) from pair (j, j+1)
     at model resolution. Returns one [T, GH+1, GW+1, 2] per view. Each
-    junction reads its extent on the host (one wait per junction).
+    junction reads its extent on the host (one wait per junction), and is
+    a ``junction`` span under a profiler.
     """
     scaled = [(scale_meshes(a, img_h, img_w, model_h, model_w),
                scale_meshes(b, img_h, img_w, model_h, model_w))
@@ -80,22 +82,23 @@ def chain_meshes(pair_meshes: List[Tuple[torch.Tensor, torch.Tensor]],
     views = [scaled[0][0]]          # view 0 in pair 0's plane
     plane = scaled[0][1]            # the shared view in the current plane
     for nxt_ref, nxt_tgt in scaled[1:]:
-        # align the shared view across the two pairs by its mean offset
-        offset = torch.mean(plane - nxt_ref, dim=(1, 2), keepdim=True)
-        nxt_ref = nxt_ref + offset
-        nxt_tgt = nxt_tgt + offset
-        # the point transforms' normalization: the extent of every mesh
-        # known so far, after the alignment (the reference also re-bases
-        # to the canvas origin; the spline's affine part makes the
-        # transform translation-equivariant, so that changes nothing)
-        all_m = torch.stack(views + [plane, nxt_ref, nxt_tgt])
-        span = torch.stack([all_m[..., 1].amax() - all_m[..., 1].amin(),
-                            all_m[..., 0].amax() - all_m[..., 0].amin()])
-        oh, ow = (float(v) for v in span.cpu())
-        middle = (plane + nxt_ref) / 2.0
-        views = [_reproject(v, plane, middle, oh, ow) for v in views]
-        views.append(middle)
-        plane = _reproject(nxt_tgt, nxt_ref, middle, oh, ow)
+        with annotate("junction"):
+            # align the shared view across the two pairs by its mean offset
+            offset = torch.mean(plane - nxt_ref, dim=(1, 2), keepdim=True)
+            nxt_ref = nxt_ref + offset
+            nxt_tgt = nxt_tgt + offset
+            # the point transforms' normalization: the extent of every mesh
+            # known so far, after the alignment (the reference also re-bases
+            # to the canvas origin; the spline's affine part makes the
+            # transform translation-equivariant, so that changes nothing)
+            all_m = torch.stack(views + [plane, nxt_ref, nxt_tgt])
+            span = torch.stack([all_m[..., 1].amax() - all_m[..., 1].amin(),
+                                all_m[..., 0].amax() - all_m[..., 0].amin()])
+            oh, ow = (float(v) for v in fetch([span], span.device)[0])
+            middle = (plane + nxt_ref) / 2.0
+            views = [_reproject(v, plane, middle, oh, ow) for v in views]
+            views.append(middle)
+            plane = _reproject(nxt_tgt, nxt_ref, middle, oh, ow)
     views.append(plane)
     return views
 

@@ -6,7 +6,9 @@ for all the device work queued before it: a small constant made with
 would wait for the previous video. These helpers stage the data in
 page-locked memory and copy with ``non_blocking=True``. PyTorch's caching
 host allocator records the copy on its stream and reuses a staging block
-only after the copy has completed; on the CPU nothing is staged.
+only after the copy has completed; on the CPU nothing is staged. Under a
+profiler, each staging is a ``stage`` span and adds its bytes to the
+``stage_bytes`` counter (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -15,12 +17,16 @@ import functools
 
 import torch
 
+from stabstitch2_tpu_torch.utils.profiling import annotate, count
+
 
 def pinned(x, device) -> torch.Tensor:
     """``x`` (numpy array or CPU tensor) as a host tensor to copy to
     ``device``: page-locked when ``device`` is a card, else ``x`` itself."""
-    t = torch.as_tensor(x)
-    return t.pin_memory() if torch.device(device).type == "cuda" else t
+    with annotate("stage"):
+        t = torch.as_tensor(x)
+        count("stage_bytes", t.numel() * t.element_size())
+        return t.pin_memory() if torch.device(device).type == "cuda" else t
 
 
 def to_device(x, device) -> torch.Tensor:

@@ -26,12 +26,16 @@ composed programs equal it. The trainers' captured steps equal their eager
 steps over four steps across an epoch boundary (bit for bit where two
 eager runs are, else within twice their gap), with one capture and three
 replays per loop, and two planted faults (a stale batch, a rate baked in
-at capture) fail that gate.
+at capture) fail that gate. A warm ``stitch_begin`` waits for the card
+once (the canvas fetch) and never calls ``torch.cuda.synchronize``; its
+phase ms are CUDA events, and a video's ``warp_fuse`` ms does not hold
+the next video's begin.
 """
 
 import collections
 import itertools
 import json
+import time
 import warnings
 
 import numpy as np
@@ -1127,6 +1131,85 @@ def _captured_step_case(stage, run, monkeypatch):
             "baked_rate": _gaps(baked, eager[0])}
     assert not _held_to_eager([stale], eager), gaps
     assert not _held_to_eager([baked], eager), gaps
+
+
+def _counting(monkeypatch, module, name):
+    """Wrap ``module.name`` so that its calls are counted in the list it
+    returns."""
+    calls = []
+    orig = getattr(module, name)
+
+    def counted(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+def test_stitch_begin_waits_once_and_never_synchronizes(cuda_device,
+                                                        monkeypatch):
+    """At the defaults (``sync_phases`` on) a warm ``stitch_begin`` makes
+    one host wait, the canvas fetch through ``compositor.wait``, and no
+    ``torch.cuda.synchronize``: its phase marks are events."""
+    from stabstitch2_tpu_torch.pipeline import compositor
+
+    st, _ = _graph_stitchers(cuda_device)
+    assert st.sync_phases
+    v1, v2 = _graph_clip(T=16)
+    st.stitch_arrays(v1, None, v2, None)               # captures
+    syncs = _counting(monkeypatch, torch.cuda, "synchronize")
+    waits = _counting(monkeypatch, compositor, "wait")
+    pending = st.stitch_begin(v1, None, v2, None)
+    assert (len(syncs), len(waits)) == (0, 1)
+    st.stitch_finish(pending)
+    assert (len(syncs), len(waits)) == (0, 3)
+
+
+def test_phase_ms_come_from_events(cuda_device):
+    """``StitchResult.ms``: the six phases, each the card time between
+    its mark's events (the first from the begin's own start event), read
+    once the finish has waited."""
+    st, _ = _graph_stitchers(cuda_device)
+    v1, v2 = _graph_clip(T=16)
+    st.stitch_arrays(v1, None, v2, None)
+    pending = st.stitch_begin(v1, None, v2, None)
+    timer = pending.timer
+    assert len(timer.devices) == 1 and timer.ms == {}
+    [start] = timer._start.values()
+    res = st.stitch_finish(pending)
+    assert timer._marks == []                  # resolved
+    assert list(res.ms) == ["upload", "spatial", "temporal", "smooth",
+                            "warp_fuse", "download"]
+    assert all(v >= 0 for v in res.ms.values())
+    total = sum(res.ms.values())
+    assert res.fps["download"] == pytest.approx(16 / (total / 1e3))
+    assert pending.composite.copied[0].query()
+    assert total == pytest.approx(
+        start.elapsed_time(pending.composite.copied[0]), rel=1e-6)
+
+
+def test_warp_fuse_leaves_out_the_next_begin(cuda_device):
+    """Two deep: a video's ``warp_fuse`` ms is the card's time to its own
+    composite, so a host sleep before the next video's begin leaves it
+    unchanged (it read the next begin's time when marks were taken at the
+    finish on the host's clock)."""
+    st, _ = _graph_stitchers(cuda_device)
+    clips = [_graph_clip(seed=s, T=16) for s in (5, 6)]
+    for a, b in clips:
+        st.stitch_arrays(a, None, b, None)
+    sleep_s = 0.25
+
+    def two_deep(pause):
+        first = st.stitch_begin(clips[0][0], None, clips[0][1], None)
+        time.sleep(pause)
+        second = st.stitch_begin(clips[1][0], None, clips[1][1], None)
+        ms = st.stitch_finish(first).ms["warp_fuse"]
+        st.stitch_finish(second)
+        return ms
+
+    plain, paused = two_deep(0.0), two_deep(sleep_s)
+    assert abs(paused - plain) < 0.1 * sleep_s * 1e3, (plain, paused)
 
 
 def test_capture_that_waits_raises(cuda_device):
