@@ -22,8 +22,8 @@ cropped to it in the one fetch. The program runs through the stitcher's
 video in the bucket, whatever its length, replays that one graph; on the
 CPU it is called directly. Inside it the motion runs eagerly at the
 chunk shape (a capture cannot replay another graph) and the warp with
-PSNR and SSIM chunk by chunk, as JAX's ``lax.map``, on cuSOLVER's linear
-algebra (``train/common.py:batched_lu_on_cublas``; MAGMA's batched LU
+PSNR and SSIM chunk by chunk, as JAX's ``lax.map``, its TPS solves on
+cuSOLVER's linear algebra (``ops/tps.py:tps_params``; MAGMA's batched LU
 waits for the host and cannot be captured).
 
 On several devices one graph cannot span the replicas (the smoothing on
@@ -58,7 +58,6 @@ from stabstitch2_tpu_torch.ops.mesh import mesh_points, normalize_mesh, rigid_me
 from stabstitch2_tpu_torch.ops.tps import tps_warp_with_mask
 from stabstitch2_tpu_torch.ops.yuv import unpack_i420_u8
 from stabstitch2_tpu_torch.pipeline.stitcher import model_input
-from stabstitch2_tpu_torch.train.common import batched_lu_on_cublas
 
 # StabStitch-D difficulty categories (the reference's test_metric_ssd.py)
 SSD_CATEGORIES = {
@@ -97,8 +96,7 @@ def _normalize(lo: torch.Tensor, mh: int, mw: int) -> torch.Tensor:
 def _warp_program(stitcher) -> Callable:
     """(a, b, mesh1, mesh2) -> (psnr [c], ssim [c]): chunk ``a``, ``b`` of
     both views' model input in [-1, 1] warped by their smooth meshes at
-    model resolution, cut to the overlap of the two coverage masks. The
-    captured forms call it under ``batched_lu_on_cublas``."""
+    model resolution, cut to the overlap of the two coverage masks."""
     mh, mw = stitcher.model_h, stitcher.model_w
     batched_psnr, batched_ssim = torch.vmap(psnr), torch.vmap(ssim)
 
@@ -153,10 +151,9 @@ def _fused_eval(stitcher) -> Callable:
         l1, l2 = _normalize(lo1, mh, mw), _normalize(lo2, mh, mw)
         sm1, sm2, tm1, tm2 = stitcher.motions(l1, l2)
         mesh1, mesh2, *masked = scores(tm1, sm1, tm2, sm2, n_frames)
-        with batched_lu_on_cublas(l1.device):
-            ps, ss = zip(*(warp(l1[s:s + chunk], l2[s:s + chunk],
-                                mesh1[s:s + chunk], mesh2[s:s + chunk])
-                           for s in range(0, l1.shape[0], chunk)))
+        ps, ss = zip(*(warp(l1[s:s + chunk], l2[s:s + chunk],
+                            mesh1[s:s + chunk], mesh2[s:s + chunk])
+                       for s in range(0, l1.shape[0], chunk)))
         return (torch.cat(ps), torch.cat(ss), *masked)
 
     return program
@@ -251,10 +248,9 @@ def _submit_composed(stitcher, x1: np.ndarray, x2: np.ndarray, T: int,
     ps, ss, s = [], [], 0
     for a, b in zip(l1, l2):
         e, dev = s + a.shape[0], a.device
-        with batched_lu_on_cublas(dev):
-            p, q = graphs.run("metric_warp", warp, a, b,
-                              mesh1[s:e].to(dev, non_blocking=True),
-                              mesh2[s:e].to(dev, non_blocking=True))
+        p, q = graphs.run("metric_warp", warp, a, b,
+                          mesh1[s:e].to(dev, non_blocking=True),
+                          mesh2[s:e].to(dev, non_blocking=True))
         ps.append(p.to(first, non_blocking=True))
         ss.append(q.to(first, non_blocking=True))
         s = e

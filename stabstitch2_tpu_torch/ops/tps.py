@@ -10,14 +10,24 @@ is the order of the fused composite-warp kernel (``csrc/fused_warp.cu``)
 and of the TPS-coordinate kernel (``csrc/tps_coords.cu``), so the kernels
 and this plain version give the same float32 coordinates, and no
 [B, P+3, H*W] basis is ever built.
+
+:func:`tps_params` solves on a card with cuSOLVER/cuBLAS
+(:func:`batched_lu_on_cublas`): PyTorch's default hands a batch of more
+than 16 systems of more than 16 unknowns, as every TPS system here has,
+to MAGMA, whose batched LU waits for the host and so drains the card. At
+16 systems or fewer the default takes the same kernels, so the results
+are those of the default route.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from stabstitch2_tpu_torch.utils.profiling import annotate, count
 
 _RBF_EPS = 1e-6  # reference: U(d2) = d2 * log(d2 + 1e-6)
 
@@ -38,15 +48,50 @@ def _system(source: torch.Tensor) -> torch.Tensor:
     return torch.cat([W_top, W_bot], dim=1)
 
 
+@contextlib.contextmanager
+def batched_lu_on_cublas(device):
+    """On a card, PyTorch's cuSOLVER/cuBLAS linear algebra for the enclosed
+    code (a solve, or a whole training step), eager or captured alike.
+    Its default hands a batch of more than 16 systems of more than 16
+    unknowns to MAGMA, which waits for the host and so cannot be captured:
+    the smooth step solves 56 TPS systems of 66 unknowns at batch 8.
+    cuBLAS factors and solves such batches in one batched call each.
+
+    The setting is the process's, not the thread's: a solve that another
+    thread makes meanwhile takes this route too, so the enclosed code must
+    not run on several threads at once. Inside an enclosing use the
+    setting is already cuSOLVER and is left alone."""
+    backends = torch.backends.cuda
+    if (torch.device(device).type != "cuda"
+            or backends.preferred_linalg_library()
+            == torch._C._LinalgBackend.Cusolver):
+        yield
+        return
+    previous = backends.preferred_linalg_library()
+    backends.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        backends.preferred_linalg_library(previous)
+
+
 def tps_params(source: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """TPS coefficients mapping ``source`` [B, P, 2] onto ``target``.
 
     Returns T: [B, 2, P+3], affine part in columns 0..2, RBF weights after.
+    float32 LU with partial pivoting, on a card under
+    :func:`batched_lu_on_cublas` (so not from several threads at once).
+    Under a profiler: a ``tps_solve`` span, and the counter
+    ``tps_systems`` (B).
     """
-    B = source.shape[0]
-    rhs = torch.cat([target, torch.zeros(B, 3, 2, dtype=target.dtype,
-                                         device=target.device)], dim=1)
-    return torch.linalg.solve_ex(_system(source), rhs).result.transpose(1, 2)
+    with annotate("tps_solve"):
+        B = source.shape[0]
+        rhs = torch.cat([target, torch.zeros(B, 3, 2, dtype=target.dtype,
+                                             device=target.device)], dim=1)
+        count("tps_systems", B)
+        with batched_lu_on_cublas(source.device):
+            T = torch.linalg.solve_ex(_system(source), rhs).result
+        return T.transpose(1, 2)
 
 
 def tps_params_shared_source(source: torch.Tensor,

@@ -42,12 +42,12 @@ package's draws to the port: :func:`draw_aug` draws the factors from a
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
 from stabstitch2_tpu_torch.config import TrainConfig
+from stabstitch2_tpu_torch.ops.tps import batched_lu_on_cublas
 from stabstitch2_tpu_torch.utils.transfer import to_device
 
 # (brightness 1, brightness 2, colour 1 [3], colour 2 [3])
@@ -258,25 +258,6 @@ def run_step(graphs, name: str, body: Callable, inputs: Sequence[torch.Tensor],
                                       if m is not None])
     opt.step_count += 1
     return out
-
-
-@contextlib.contextmanager
-def batched_lu_on_cublas(device):
-    """On a card, PyTorch's cuSOLVER/cuBLAS linear algebra for the enclosed
-    step, eager or captured alike. Its default hands a batch of more than
-    16 systems of more than 16 unknowns to MAGMA, which waits for the host
-    and so cannot be captured: the smooth step solves 56 TPS systems of 66
-    unknowns at batch 8. cuBLAS factors and solves such batches in one
-    batched call each."""
-    if torch.device(device).type != "cuda":
-        yield
-        return
-    previous = torch.backends.cuda.preferred_linalg_library()
-    torch.backends.cuda.preferred_linalg_library("cusolver")
-    try:
-        yield
-    finally:
-        torch.backends.cuda.preferred_linalg_library(previous)
 
 
 def apply_aug(img1: torch.Tensor, img2: torch.Tensor, factors: AugFactors

@@ -29,10 +29,15 @@ replays per loop, and two planted faults (a stale batch, a rate baked in
 at capture) fail that gate. A warm ``stitch_begin`` waits for the card
 once (the canvas fetch) and never calls ``torch.cuda.synchronize``; its
 phase ms are CUDA events, and a video's ``warp_fuse`` ms does not hold
-the next video's begin.
+the next video's begin. A three-view chain chunk (24 TPS systems) and a
+junction (48) solve on cuBLAS's batched LU, with no MAGMA kernel and no
+host wait inside a solve, their splines within 2e-4 of PyTorch's default
+route's; a two-view chunk (16 systems) solves under cuSOLVER with the
+default route's numbers bit for bit.
 """
 
 import collections
+import contextlib
 import itertools
 import json
 import time
@@ -46,7 +51,9 @@ from stabstitch2_tpu_torch.config import StitchConfig
 from stabstitch2_tpu_torch.ops import (corr_cuda, fused_warp_cuda,
                                        patch_gather_cuda, tps_coords_cuda)
 from stabstitch2_tpu_torch.ops.mesh import mesh_points, normalize_mesh, rigid_mesh
+from stabstitch2_tpu_torch.ops import tps as tps_mod
 from stabstitch2_tpu_torch.ops.tps import tps_params
+from stabstitch2_tpu_torch.pipeline import threeview
 from stabstitch2_tpu_torch.pipeline.stitcher import init_stitcher
 
 pytestmark = pytest.mark.cuda
@@ -398,6 +405,188 @@ def test_composite_routes_card_vs_cpu(cuda_device, cfg):
     assert card.shape == cpu.shape and card.max() > 10
     d = np.abs(card.astype(np.int16) - cpu.astype(np.int16))
     assert (d > 0).mean() <= 1e-2 and (d > 1).mean() <= 1e-4, d.max()
+
+
+# host calls that wait for the card: none may run inside a TPS solve
+WAITING_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                 "cudaEventSynchronize")
+
+
+def _profiled_trace(fn, path):
+    """``fn()`` once warm, then again under a CPU and CUDA profiler; its
+    result and the trace's complete events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        return out, [e for e in json.load(f)["traceEvents"]
+                     if e.get("ph") == "X"]
+
+
+def _assert_solves_never_wait(events, solves):
+    """``solves`` ``tps_solve`` spans, no MAGMA kernel, and no waiting
+    host call inside a span."""
+    spans = [e for e in events if e["name"] == "tps_solve"
+             and e.get("cat") == "user_annotation"]
+    assert len(spans) == solves, len(spans)
+    magma = [e["name"] for e in events if e.get("cat") == "kernel"
+             and "magma" in e["name"].lower()]
+    assert not magma, magma
+    waits = [(e["name"], s["ts"]) for s in spans for e in events
+             if e["name"] in WAITING_CALLS
+             and s["ts"] <= e["ts"] <= s["ts"] + s["dur"]]
+    assert not waits, waits
+
+
+def _route_ruled_out(device):
+    """In place of ``tps.batched_lu_on_cublas``: PyTorch's default route,
+    the only one before the TPS solves chose cuSOLVER."""
+    return contextlib.nullcontext()
+
+
+class _Systems:
+    """Records each ``tps_params`` call's (source, target), and rules the
+    cuSOLVER route out while ``default`` is set."""
+
+    def __init__(self, monkeypatch):
+        self.calls, self.default = [], False
+        self.solve, route = tps_mod.tps_params, tps_mod.batched_lu_on_cublas
+
+        def recorded(source, target):
+            self.calls.append((source.clone(), target.clone()))
+            return self.solve(source, target)
+
+        monkeypatch.setattr(tps_mod, "batched_lu_on_cublas", lambda d: (
+            _route_ruled_out(d) if self.default else route(d)))
+        monkeypatch.setattr(tps_mod, "tps_params", recorded)
+        monkeypatch.setattr(threeview, "tps_params", recorded)
+
+    def assert_splines_agree(self, calls, out_size=(64, 96)):
+        """Each batch's spline, solved on the shipped route and on the
+        default one, within 2e-4 in normalized coordinates (the tolerance
+        of ``tests/test_torch_ops.py::TestTPS``)."""
+        for source, target in calls:
+            source = source.contiguous()
+            new = self.solve(source, target).contiguous()
+            self.default = True
+            old = self.solve(source, target).contiguous()
+            self.default = False
+            for a, b in zip(tps_mod.tps_sample_coords(new, source, out_size),
+                            tps_mod.tps_sample_coords(old, source, out_size)):
+                torch.testing.assert_close(a, b, atol=2e-4, rtol=0)
+
+
+def _chain_chunk_case(device, V=3, B=8, H=96, W=144, seed=6):
+    """One chain composite chunk's inputs: V x B uint8 frames, their
+    frame-resolution meshes 40 px apart, the canvas offset and size."""
+    from stabstitch2_tpu_torch.pipeline.compositor import plan_canvas
+
+    rng = np.random.default_rng(seed)
+    imgs = torch.from_numpy(rng.integers(0, 255, (V, B, H, W, 3),
+                                         dtype=np.uint8)).to(device)
+    base = np.stack(np.meshgrid(np.linspace(0.0, W, 9),
+                                np.linspace(0.0, H, 7)), -1)
+    meshes = torch.from_numpy(np.stack([
+        base + rng.normal(0, 2, (B, 7, 9, 2)) + [40.0 * v, 0.0]
+        for v in range(V)]).astype(np.float32)).to(device)
+    flat = meshes.reshape(V * B, 7, 9, 2)
+    canvas, span = plan_canvas(flat, flat, StitchConfig(canvas_bucket=32))
+    offset = torch.tensor([canvas.x_min, canvas.y_min], device=device)
+    return imgs, meshes, offset, (canvas.pad_h, canvas.pad_w), span
+
+
+def test_chain_chunk_solves_without_magma_or_waits(cuda_device, tmp_path,
+                                                   monkeypatch):
+    """A warm three-view chain chunk at V x B = 24 systems: one solve on
+    cuBLAS's batched LU, no MAGMA kernel and no host wait inside it; its
+    spline within 2e-4 of the default route's, its frames as close to the
+    default route's as the card's to the CPU's
+    (``test_composite_routes_card_vs_cpu``)."""
+    imgs, meshes, offset, out_size, span = _chain_chunk_case(cuda_device)
+    systems = _Systems(monkeypatch)
+
+    def chunk():
+        return threeview.composite_chain_chunk(
+            imgs, meshes, offset, out_size, "NORMAL", "LINEAR", span)
+
+    got, events = _profiled_trace(chunk, tmp_path / "chain.json")
+    _assert_solves_never_wait(events, 1)
+    assert systems.calls[-1][0].shape[0] == 24
+    systems.assert_splines_agree(systems.calls[-1:])
+    systems.default = True
+    want = chunk()
+    assert got.shape == want.shape and int(got.max()) > 10
+    d = (got.to(torch.int16) - want.to(torch.int16)).abs()
+    assert ((d > 0).float().mean() <= 1e-2
+            and (d > 1).float().mean() <= 1e-4), int(d.max())
+
+
+def test_chain_junction_solves_without_magma_or_waits(cuda_device, tmp_path,
+                                                      monkeypatch):
+    """A warm three-view ``chain_meshes`` at T = 48: its junction's two
+    point transforms solve 48 systems each on cuBLAS's batched LU, with no
+    MAGMA kernel and no host wait inside a solve (the junction's one wait
+    is its extent fetch); each spline within 2e-4 of the default route's."""
+    T, H, W = 48, 96, 144
+    gen = torch.Generator().manual_seed(3)
+    rigid = rigid_mesh(H, W)
+    pairs = [tuple((rigid + torch.randn((T, *rigid.shape), generator=gen)
+                    + torch.tensor([40.0 * j, 0.0])).to(cuda_device)
+                   for j in (k, k + 1)) for k in range(2)]
+    systems = _Systems(monkeypatch)
+
+    def chain():
+        return threeview.chain_meshes(pairs, H, W, H, W)
+
+    got, events = _profiled_trace(chain, tmp_path / "junction.json")
+    _assert_solves_never_wait(events, 2)
+    assert [c[0].shape[0] for c in systems.calls[-2:]] == [T, T]
+    systems.assert_splines_agree(systems.calls[-2:])
+    assert len(got) == 3 and all(m.shape == (T, 7, 9, 2) for m in got)
+
+
+def test_two_view_chunk_keeps_the_default_routes_numbers(cuda_device,
+                                                         monkeypatch):
+    """A two-view composite chunk at B = 8 solves its 16 systems under
+    cuSOLVER, as every TPS solve on a card, and gives what PyTorch's
+    default route gives (the only route before) bit for bit."""
+    from stabstitch2_tpu_torch.pipeline.compositor import composite_chunk
+    from stabstitch2_tpu_torch.utils import profiling
+    from torch.profiler import ProfilerActivity, profile
+
+    imgs, meshes, offset, out_size, span = _chain_chunk_case(cuda_device, V=2)
+    backend = torch._C._LinalgBackend
+    solve, settings = torch.linalg.solve_ex, []
+
+    def spied(*args, **kwargs):
+        settings.append(torch.backends.cuda.preferred_linalg_library())
+        return solve(*args, **kwargs)
+
+    def chunk():
+        return composite_chunk(imgs[0], imgs[1], meshes[0], meshes[1],
+                               offset, out_size, "AVERAGE", span)
+
+    monkeypatch.setattr(torch.linalg, "solve_ex", spied)
+    with monkeypatch.context() as m:
+        m.setattr(tps_mod, "batched_lu_on_cublas", _route_ruled_out)
+        want = chunk()
+    assert settings == [backend.Default], settings
+    settings.clear()
+    profiling.clear_table()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = chunk()
+    counters = profiling.table().counters
+    profiling.clear_table()
+    assert settings == [backend.Cusolver], settings
+    assert torch.backends.cuda.preferred_linalg_library() == backend.Default
+    assert counters["tps_systems"] == 16, counters
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
 def test_pinned_downloads_equal_the_blocking_path(cuda_device):

@@ -108,6 +108,53 @@ class TestTPS:
             np.testing.assert_allclose(n(x), n(xr), atol=2e-4)
             np.testing.assert_allclose(n(y), n(yr), atol=2e-4)
 
+    @pytest.mark.parametrize("device,previous,switched", [
+        ("cuda", "Default", True), ("cuda:1", "Magma", True),
+        ("cuda", "Cusolver", False), ("cpu", "Default", False),
+        ("meta", "Magma", False)])
+    def test_cublas_route_by_device(self, monkeypatch, device, previous,
+                                    switched):
+        """On a card the solve runs under cuSOLVER and the setting comes
+        back after it, an error included; elsewhere, or where cuSOLVER is
+        already set, the setting is not written (no card needed: the
+        setting is stood in for)."""
+        backend = torch._C._LinalgBackend
+        state, writes = [getattr(backend, previous)], []
+
+        def setting(library=None):
+            if library is not None:
+                writes.append(library)
+                state[0] = (backend.Cusolver if library == "cusolver"
+                            else library)
+            return state[0]
+
+        monkeypatch.setattr(torch.backends.cuda, "preferred_linalg_library",
+                            setting)
+        inside = []
+        with pytest.raises(RuntimeError, match="solve failed"):
+            with tps.batched_lu_on_cublas(device):
+                inside.append(setting())
+                raise RuntimeError("solve failed")
+        old = getattr(backend, previous)
+        assert inside == [backend.Cusolver if switched else old]
+        assert writes == (["cusolver", old] if switched else [])
+        assert state == [old]
+
+    @pytest.mark.parametrize("B", [1, 16, 24])
+    def test_cpu_params_on_the_default_route(self, B):
+        """On the CPU ``tps_params`` is the plain ``solve_ex`` bit for bit,
+        whatever the batch, and leaves the linear-algebra setting alone."""
+        from stabstitch2_tpu_torch.train import common
+
+        assert common.batched_lu_on_cublas is tps.batched_lu_on_cublas
+        src, tgt = (t(a) for a in _mesh_case(seed=4, B=B))
+        before = torch.backends.cuda.preferred_linalg_library()
+        got = tps.tps_params(src, tgt)
+        rhs = torch.cat([tgt, torch.zeros(B, 3, 2)], dim=1)
+        want = torch.linalg.solve_ex(tps._system(src), rhs).result
+        torch.testing.assert_close(got, want.transpose(1, 2), atol=0, rtol=0)
+        assert torch.backends.cuda.preferred_linalg_library() == before
+
     def test_shared_source_matches_per_batch_solve(self):
         src, tgt = _mesh_case(seed=1, B=3)
         shared = tps.tps_params_shared_source(t(tgt[0]), t(src))

@@ -8,8 +8,9 @@ waits), one ``pack``, and ``stage`` spans whose ``stage_bytes`` are every
 byte staged for the card, frames included, with frames bit-equal to the
 same run unprofiled; one ``wait`` in a steady online push; one
 ``junction`` (and its one extent fetch) per junction of an N-view chain;
-one ``loader_wait`` per batch of ``batch_iterator``; and a span's self
-seconds are its seconds less its children's.
+one ``tps_solve`` per TPS solve (one in a steady push), its systems
+counted; one ``loader_wait`` per batch of ``batch_iterator``; and a
+span's self seconds are its seconds less its children's.
 """
 
 import time
@@ -23,7 +24,9 @@ from stabstitch2_tpu_torch import cli
 from stabstitch2_tpu_torch.config import StitchConfig
 from stabstitch2_tpu_torch.data.datasets import batch_iterator
 from stabstitch2_tpu_torch.data.video_io import bgr_to_i420
-from stabstitch2_tpu_torch.ops.mesh import rigid_mesh
+from stabstitch2_tpu_torch.ops import tps
+from stabstitch2_tpu_torch.ops.mesh import (mesh_points, normalize_mesh,
+                                            rigid_mesh)
 from stabstitch2_tpu_torch.pipeline import stitcher as stitcher_mod
 from stabstitch2_tpu_torch.pipeline import threeview
 from stabstitch2_tpu_torch.pipeline.online import OnlineStitcher
@@ -140,8 +143,10 @@ def test_steady_push_waits_once(st, profiled):
     assert online.waits == waits + 1
     assert spans(table, "push") == 1 and spans(table, "wait") == 1
     assert spans(table, "stage") >= 1 and spans(table, "pack") == 1
+    assert spans(table, "tps_solve") == 1          # the B=1 composite's
     push = table.spans["push"]
-    inner = sum(table.spans[n].total_s for n in ("stage", "wait", "pack"))
+    inner = sum(table.spans[n].total_s
+                for n in ("stage", "wait", "pack", "tps_solve"))
     assert push.self_s == pytest.approx(push.total_s - inner, abs=1e-9)
 
 
@@ -161,6 +166,24 @@ def test_chain_junction_spans(profiled, views):
     assert spans(table, "wait") == views - 2
     j = table.spans["junction"]
     assert 0 <= j.self_s <= j.total_s - table.spans["wait"].total_s + 1e-9
+
+
+@pytest.mark.parametrize("B", [2, 24])
+def test_tps_solve_span_and_counter(profiled, B):
+    """One ``tps_solve`` span a ``tps_params`` call and its B systems in
+    ``tps_systems``; nothing recorded with the profiler off."""
+    gen = torch.Generator().manual_seed(2)
+    target = mesh_points(normalize_mesh(rigid_mesh(MH, MW), MH, MW))
+    target = target[None].expand(B, -1, -1)
+    source = target + 0.02 * torch.randn(target.shape, generator=gen)
+    T, table = profiled(lambda: tps.tps_params(source, target))
+    assert T.shape == (B, 2, 66)
+    assert spans(table, "tps_solve") == 1
+    assert table.counters == {"tps_systems": B}
+    profiling.clear_table()
+    tps.tps_params(source, target)               # no profiler
+    table = profiling.table()
+    assert table.spans == {} and table.counters == {}
 
 
 @pytest.mark.parametrize("limit,batches", [(None, 3), (2, 2)])
