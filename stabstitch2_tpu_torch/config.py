@@ -50,7 +50,9 @@ class StitchConfig:
     # padded size (LINEAR fusion sees the padded canvas); the spline keeps
     # the true extent's normalization, so the padding changes no kept pixel.
     canvas_bucket: int = 32
-    # Max canvas size (pixels) the compositor will allocate.
+    # Max padded canvas size (pixels) the compositor will allocate for
+    # frames at the model's size; larger frames scale it by their size
+    # over the model's (``pipeline/compositor.py:canvas_cap``).
     max_canvas_h: int = 1024
     max_canvas_w: int = 1280
     # 'bgr': frames leave the device as uint8 BGR [T, H, W, 3].

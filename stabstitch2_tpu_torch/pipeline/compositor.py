@@ -283,17 +283,40 @@ def chains_yuv420(config: StitchConfig, out_format: str) -> bool:
             and out_format == "yuv420")
 
 
-def plan_canvas(mesh1: torch.Tensor, mesh2: torch.Tensor,
-                config: StitchConfig) -> Tuple[Canvas, Tuple]:
-    """The canvas of frame-resolution meshes and the spline's normalization
-    span (the true extent, float32). Raises past ``config.max_canvas_*``;
-    for yuv420 the canvas describes the frames emitted, cropped to even
-    sizes. Fetches the meshes' extent: the one wait of a begin."""
-    canvas = compute_canvas(mesh1, mesh2, config.canvas_bucket)
-    if canvas.pad_h > config.max_canvas_h or canvas.pad_w > config.max_canvas_w:
+def canvas_cap(config: StitchConfig, frame_size: Tuple[int, int],
+               model_size: Tuple[int, int] = (MODEL_H, MODEL_W)
+               ) -> Tuple[int, int]:
+    """The largest padded canvas a composite of ``frame_size`` (H, W)
+    frames may allocate: ``config.max_canvas_*``, which is set for frames
+    at the model's size, times the frames' size over the model's on each
+    axis, never below the configured cap (360x480 frames keep 1024x1280;
+    1080x1920 frames get 3072x5120)."""
+    (fh, fw), (mh, mw) = frame_size, model_size
+    return (max(config.max_canvas_h, -(-config.max_canvas_h * fh // mh)),
+            max(config.max_canvas_w, -(-config.max_canvas_w * fw // mw)))
+
+
+def check_canvas(canvas: Canvas, cap: Tuple[int, int]) -> None:
+    """Raise where the padded canvas passes ``cap`` (a runaway mesh)."""
+    if canvas.pad_h > cap[0] or canvas.pad_w > cap[1]:
         raise ValueError(
             f"canvas {canvas.pad_h}x{canvas.pad_w} exceeds configured max "
-            f"{config.max_canvas_h}x{config.max_canvas_w}")
+            f"{cap[0]}x{cap[1]}")
+
+
+def plan_canvas(mesh1: torch.Tensor, mesh2: torch.Tensor,
+                config: StitchConfig,
+                frame_size: Optional[Tuple[int, int]] = None,
+                model_size: Tuple[int, int] = (MODEL_H, MODEL_W)
+                ) -> Tuple[Canvas, Tuple]:
+    """The canvas of frame-resolution meshes and the spline's normalization
+    span (the true extent, float32). Raises past :func:`canvas_cap` of the
+    frames (``frame_size``; None: frames at the model's size); for yuv420
+    the canvas describes the frames emitted, cropped to even sizes.
+    Fetches the meshes' extent: the one wait of a begin."""
+    canvas = compute_canvas(mesh1, mesh2, config.canvas_bucket)
+    check_canvas(canvas, canvas_cap(config, frame_size or model_size,
+                                    model_size))
     grid_span = (np.float32(canvas.out_h), np.float32(canvas.out_w))
     if config.download_format == "yuv420":
         canvas = dataclasses.replace(canvas, out_h=canvas.out_h // 2 * 2,
@@ -364,7 +387,7 @@ def composite_begin(img1, img2, smooth_mesh1: torch.Tensor,
         T, H, W, _ = img1.shape
     m1 = scale_meshes(smooth_mesh1, H, W, *model_size)
     m2 = scale_meshes(smooth_mesh2, H, W, *model_size)
-    canvas, grid_span = plan_canvas(m1, m2, config)
+    canvas, grid_span = plan_canvas(m1, m2, config, (H, W), model_size)
     offsets = {}
 
     def run(k, s, e, out_format):

@@ -32,9 +32,13 @@ The composite takes the batch compositor's routes
 ``fused_warp=False``. A push enqueues the composite together with the
 meshes' extent, copies both into page-locked buffers without blocking, and
 waits for the card once; only a batch whose content left the canvas is
-composited again after re-anchoring. Under a profiler a push is the
-``push`` span, around its ``stage``, ``wait`` and ``pack`` spans
-(``utils/profiling.py``). The TPU package's overflow repair is
+composited again after re-anchoring. A canvas past the compositor's cap
+for the frames' size (``compositor.canvas_cap``) raises. Under a profiler
+a push is the ``push`` span, around its ``upload`` (the pair's ``stage``
+copy into one page-locked buffer and the copy to the card), ``composite`` (the
+composite's enqueue and the copies of its planes to the host; the
+``emit_bytes`` counter adds the panorama bytes fetched), ``wait`` and
+``pack`` spans (``utils/profiling.py``). The TPU package's overflow repair is
 not ported: the card's gathers cannot overflow.
 """
 
@@ -50,16 +54,20 @@ from stabstitch2_tpu_torch.models.smooth import smooth_outputs
 from stabstitch2_tpu_torch.models.spatial import spatial_motions
 from stabstitch2_tpu_torch.ops.mesh import rigid_mesh
 from stabstitch2_tpu_torch.ops.yuv import bgr_u8_to_yuv420, unpack_i420_u8
-from stabstitch2_tpu_torch.pipeline.compositor import (Canvas,
+from stabstitch2_tpu_torch.pipeline.compositor import (Canvas, canvas_cap,
                                                        chains_yuv420,
+                                                       check_canvas,
                                                        composite_chunk,
-                                                       fetch, fused_route,
-                                                       scale_meshes)
+                                                       copy_to_host, fetch,
+                                                       fused_route,
+                                                       host_buffer,
+                                                       record_event,
+                                                       scale_meshes, wait)
 from stabstitch2_tpu_torch.pipeline.stitcher import model_input
 from stabstitch2_tpu_torch.pipeline.transport import transport
 from stabstitch2_tpu_torch.utils.graphs import GraphCache
-from stabstitch2_tpu_torch.utils.profiling import annotate
-from stabstitch2_tpu_torch.utils.transfer import constant
+from stabstitch2_tpu_torch.utils.profiling import annotate, count
+from stabstitch2_tpu_torch.utils.transfer import constant, pinned_frames
 
 
 def check_frame(name: str, h: np.ndarray) -> None:
@@ -136,9 +144,10 @@ class OnlineStitcher:
 
     # -- canvas ------------------------------------------------------------
 
-    def _establish_canvas(self, ext: np.ndarray) -> None:
+    def _establish_canvas(self, ext: np.ndarray, cap=None) -> None:
         """A canvas around the extent (x_min, x_max, y_min, y_max) times
-        the margin, padded to the bucket; even sizes for i420."""
+        the margin, padded to the bucket; even sizes for i420. Raises past
+        ``cap`` (padded height, width), where given."""
         cx = (ext[0] + ext[1]) / 2.0
         cy = (ext[2] + ext[3]) / 2.0
         half_w = (ext[1] - ext[0]) / 2.0 * self.canvas_margin
@@ -151,21 +160,23 @@ class OnlineStitcher:
             # the emitted frames and no content is cropped
             out_w += out_w % 2
             out_h += out_h % 2
-        self._set_canvas(Canvas(out_h=out_h, out_w=out_w,
-                                pad_h=-(-out_h // bucket) * bucket,
-                                pad_w=-(-out_w // bucket) * bucket,
-                                x_min=float(cx - half_w),
-                                y_min=float(cy - half_h)))
+        canvas = Canvas(out_h=out_h, out_w=out_w,
+                        pad_h=-(-out_h // bucket) * bucket,
+                        pad_w=-(-out_w // bucket) * bucket,
+                        x_min=float(cx - half_w), y_min=float(cy - half_h))
+        if cap is not None:
+            check_canvas(canvas, cap)
+        self._set_canvas(canvas)
 
     def _set_canvas(self, canvas: Canvas) -> None:
         self.canvas = canvas
         self._offset = constant([canvas.x_min, canvas.y_min], torch.float32,
                                 self.device)
 
-    def _reanchor(self, ext: np.ndarray) -> None:
+    def _reanchor(self, ext: np.ndarray, cap=None) -> None:
         """The content left the canvas: centre on it. If it still fits the
         canvas's size only the anchor moves (same padded shape); else a
-        larger canvas is made."""
+        larger canvas is made (no larger than ``cap``)."""
         c = self.canvas
         need_w = (ext[1] - ext[0]) * self.canvas_margin
         need_h = (ext[3] - ext[2]) * self.canvas_margin
@@ -177,7 +188,7 @@ class OnlineStitcher:
                                     x_min=float(cx - c.out_w / 2.0),
                                     y_min=float(cy - c.out_h / 2.0)))
         else:
-            self._establish_canvas(ext)
+            self._establish_canvas(ext, cap)
         self.reanchor_frames.append(self._t)
 
     def _ext_fits(self, ext: np.ndarray) -> bool:
@@ -191,6 +202,25 @@ class OnlineStitcher:
         """The compositor's one-wait fetch, counted in ``waits``."""
         self.waits += 1
         return fetch(tensors, self.device)
+
+    def _wait(self) -> None:
+        """Wait for the card past everything enqueued (one event), counted
+        in ``waits``."""
+        self.waits += 1
+        wait(record_event(self.device))
+
+    def _enqueue_fetch(self, h1s, h2s, m1, m2, extra=()
+                       ) -> List[torch.Tensor]:
+        """One batch's composite and the copies of its planes (then of
+        ``extra`` tensors) into page-locked host buffers, which it returns
+        (valid after :meth:`_wait`); the planes' bytes go to the
+        ``emit_bytes`` counter."""
+        planes = self._enqueue_composite(h1s, h2s, m1, m2)
+        count("emit_bytes", sum(p.numel() * p.element_size() for p in planes))
+        tensors = planes + list(extra)
+        host = [host_buffer(t.shape, t.dtype, self.device) for t in tensors]
+        copy_to_host(host, tensors)
+        return host
 
     def _enqueue_composite(self, h1s, h2s, m1, m2) -> List[torch.Tensor]:
         """One batch's composite against the current canvas, cropped to
@@ -222,19 +252,23 @@ class OnlineStitcher:
         in one wait, and only content that left the canvas re-anchors and
         composites the batch again."""
         B, H, W = h1s.shape[:3]
-        m1 = scale_meshes(meshes1, H, W, self.mh, self.mw)
-        m2 = scale_meshes(meshes2, H, W, self.mh, self.mw)
-        m = torch.stack([m1, m2])
-        ext = torch.stack([m[..., 0].amin(), m[..., 0].amax(),
-                           m[..., 1].amin(), m[..., 1].amax()])
-        if self.canvas is None:
-            self._establish_canvas(self._fetch([ext])[0].numpy())
-        *planes, ext_h = self._fetch(
-            self._enqueue_composite(h1s, h2s, m1, m2) + [ext])
+        cap = canvas_cap(self.cfg, (H, W), (self.mh, self.mw))
+        with annotate("composite"):
+            m1 = scale_meshes(meshes1, H, W, self.mh, self.mw)
+            m2 = scale_meshes(meshes2, H, W, self.mh, self.mw)
+            m = torch.stack([m1, m2])
+            ext = torch.stack([m[..., 0].amin(), m[..., 0].amax(),
+                               m[..., 1].amin(), m[..., 1].amax()])
+            if self.canvas is None:
+                self._establish_canvas(self._fetch([ext])[0].numpy(), cap)
+            *planes, ext_h = self._enqueue_fetch(h1s, h2s, m1, m2, [ext])
+        self._wait()
         ext_h = ext_h.numpy()
         if not self._ext_fits(ext_h):
-            self._reanchor(ext_h)
-            planes = self._fetch(self._enqueue_composite(h1s, h2s, m1, m2))
+            self._reanchor(ext_h, cap)
+            with annotate("composite"):
+                planes = self._enqueue_fetch(h1s, h2s, m1, m2)
+            self._wait()
         with annotate("pack"):
             planes = [p.numpy() for p in planes]
             if self.emit_format == "i420":
@@ -293,7 +327,9 @@ class OnlineStitcher:
         check_frame("hi1", hi1)
         check_frame("hi2", hi2)
         s = self.s
-        frames = s.upload(np.stack([hi1, hi2]), np.uint8, [])
+        with annotate("upload"):
+            frames = pinned_frames([hi1, hi2], self.device).to(
+                self.device, non_blocking=True)
         self._first.fill_(self._t == 0)
         if self.graphs is None:
             pair, sm1w, sm2w = self._step(frames)

@@ -146,7 +146,8 @@ def composite_chain_chunk(imgs: torch.Tensor, meshes: torch.Tensor,
 
 
 def composite_chain_begin(images, meshes: List[torch.Tensor],
-                          config: StitchConfig, chunk: int = 8
+                          config: StitchConfig, chunk: int = 8,
+                          model_size: Tuple[int, int] = (MODEL_H, MODEL_W)
                           ) -> PendingComposite:
     """Enqueue the whole N-view composite; return its pending state.
 
@@ -154,15 +155,18 @@ def composite_chain_begin(images, meshes: List[torch.Tensor],
     device or host arrays (uploaded per chunk), or V chunk lists (chunk k
     of ``chunk`` frames on the device that runs it, as a stitcher on
     several devices deals them); meshes: V frame-resolution meshes [T,
-    GH+1, GW+1, 2]. The canvas spans every view's meshes (the one wait);
-    for yuv420 the frames are cropped to even sizes while the spline
-    keeps the true extent.
+    GH+1, GW+1, 2]. The canvas spans every view's meshes (the one wait),
+    capped for the frames' size over ``model_size``; for yuv420 the
+    frames are cropped to even sizes while the spline keeps the true
+    extent.
     """
     fused = fused_route(config)
     device = meshes[0].device
     T = meshes[0].shape[0]
+    first = images[0][0] if isinstance(images[0], list) else images[0]
     stacked = torch.cat(meshes, 0)
-    canvas, grid_span = plan_canvas(stacked, stacked, config)
+    canvas, grid_span = plan_canvas(stacked, stacked, config,
+                                    tuple(first.shape[1:3]), model_size)
     offsets = {}
     mesh_all = torch.stack(meshes)
 
@@ -193,10 +197,12 @@ def composite_chain_finish(state: PendingComposite) -> Tuple[np.ndarray, str]:
 
 
 def composite_chain(images, meshes: List[torch.Tensor], config: StitchConfig,
-                    chunk: int = 8) -> np.ndarray:
+                    chunk: int = 8,
+                    model_size: Tuple[int, int] = (MODEL_H, MODEL_W)
+                    ) -> np.ndarray:
     """Warp every view onto the global canvas and cascade the fusion."""
-    return composite_chain_finish(composite_chain_begin(images, meshes, config,
-                                                        chunk=chunk))[0]
+    return composite_chain_finish(composite_chain_begin(
+        images, meshes, config, chunk=chunk, model_size=model_size))[0]
 
 
 @dataclasses.dataclass
@@ -229,7 +235,8 @@ def stitch_multi_begin(stitcher, his: List[np.ndarray]) -> _PendingMulti:
     meshes = chain_meshes(pair_meshes, H, W, mh, mw)
     return _PendingMulti(composite_chain_begin(frames, meshes,
                                                stitcher.config,
-                                               chunk=stitcher.chunk), staging)
+                                               chunk=stitcher.chunk,
+                                               model_size=(mh, mw)), staging)
 
 
 def stitch_multi_finish(state: _PendingMulti) -> Tuple[np.ndarray, str]:

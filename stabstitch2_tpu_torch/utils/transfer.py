@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from stabstitch2_tpu_torch.utils.profiling import annotate, count
@@ -27,6 +28,26 @@ def pinned(x, device) -> torch.Tensor:
         t = torch.as_tensor(x)
         count("stage_bytes", t.numel() * t.element_size())
         return t.pin_memory() if torch.device(device).type == "cuda" else t
+
+
+def pinned_frames(frames, device) -> torch.Tensor:
+    """uint8 frames of one shape (numpy arrays) as one host tensor [N,
+    ...] to copy to ``device``, each frame copied into it once, with no
+    stacked array in between (at 1080x1920 that array is 12.4 MB of
+    fresh memory a pair): page-locked when ``device`` is a card. The
+    ``stage`` span and ``stage_bytes`` of :func:`pinned`."""
+    shape = np.shape(frames[0])
+    if any(np.shape(f) != shape for f in frames):
+        raise ValueError(f"frames of different shapes: "
+                         f"{[np.shape(f) for f in frames]}")
+    with annotate("stage"):
+        host = torch.empty((len(frames), *shape), dtype=torch.uint8,
+                           pin_memory=torch.device(device).type == "cuda")
+        view = host.numpy()
+        for k, f in enumerate(frames):
+            view[k] = f
+        count("stage_bytes", host.numel())
+        return host
 
 
 def to_device(x, device) -> torch.Tensor:

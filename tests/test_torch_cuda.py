@@ -38,6 +38,7 @@ default route's numbers bit for bit.
 
 import collections
 import contextlib
+import dataclasses
 import itertools
 import json
 import time
@@ -1399,6 +1400,208 @@ def test_warp_fuse_leaves_out_the_next_begin(cuda_device):
 
     plain, paused = two_deep(0.0), two_deep(sleep_s)
     assert abs(paused - plain) < 0.1 * sleep_s * 1e3, (plain, paused)
+
+
+# rig-size frames (benchmark/configs/ssd-1080p.json): 1080x1920 camera
+# pairs through the 360x480 model, on the card through the normal paths
+RIG_HW = (1080, 1920)
+RIG_CANVAS = (1408, 3616)
+
+
+def _rig_meshes(n_views, seed=0, jitter=3.0):
+    """Frame-resolution meshes [1, 7, 9, 2] of rig views at 0.5 overlap."""
+    rng = np.random.default_rng(seed)
+    H, W = RIG_HW
+    base = np.stack(np.meshgrid(np.linspace(0.0, W, 9),
+                                np.linspace(0.0, H, 7)), -1)
+    return [torch.from_numpy((base + [k * W / 2.0, 0.0]
+                              + rng.normal(0, jitter, base.shape))[None]
+                             .astype(np.float32)) for k in range(n_views)]
+
+
+def _rig_cfg():
+    import os
+
+    from benchmark import harness
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    bench = os.path.join(root, "benchmark")
+    return (harness.load_json(os.path.join(bench, "configs",
+                                           "ssd-1080p.json")),
+            harness.load_json(os.path.join(bench, "limits",
+                                           "ssd-1080p.online.json")),
+            harness.load_json(os.path.join(bench, "limits",
+                                           "ssd-2view.offline.json")))
+
+
+def test_k2_and_fusion_at_the_rig_canvas(cuda_device):
+    """Two 1080x1920 views at 0.5 overlap onto the 1408x3616 canvas they
+    span with the online margin: K2 bit for bit against its plain version
+    on the card; the AVERAGE fusion and the uint8 clip of its planes on
+    the card against the same functions on the CPU (<= 1 level)."""
+    from stabstitch2_tpu_torch.ops.blend import average_fusion
+    from stabstitch2_tpu_torch.pipeline.compositor import clip_and_convert
+
+    rng = np.random.default_rng(9)
+    H, W = RIG_HW
+    im = torch.from_numpy(rng.integers(0, 255, (2, H, W, 3), dtype=np.uint8))
+    mesh = torch.cat(_rig_meshes(2))
+    span = (1380.0, 3600.0)
+    offset = torch.tensor([-(3600.0 - 2880.0) / 2, -(1380.0 - 1080.0) / 2])
+    norm = mesh_points(normalize_mesh(mesh - offset, *span))
+    nrig = mesh_points(normalize_mesh(rigid_mesh(H, W), H, W))[None]
+    T = tps_params(norm, nrig.expand(norm.shape).contiguous())
+    args = (im.to(cuda_device), T.contiguous().to(cuda_device),
+            norm.contiguous().to(cuda_device))
+    got = fused_warp_cuda.fused_warp_planes(*args, RIG_CANVAS,
+                                            grid_span=span)
+    ref = fused_warp_cuda.fused_warp_planes_plain(*args, RIG_CANVAS,
+                                                  grid_span=span)
+    for g, r in zip(got[:4], ref[:4]):
+        torch.testing.assert_close(g, r, atol=0, rtol=0)
+    live = got[3] > 0
+    assert 0.3 < float(live.float().mean()) < 0.9     # both views landed
+    warped = torch.stack(got[:3], -1)
+    card = clip_and_convert(average_fusion(warped[:1], warped[1:]), "bgr")
+    w = warped.cpu()
+    cpu = clip_and_convert(average_fusion(w[:1], w[1:]), "bgr")
+    d = (card.cpu().to(torch.int16) - cpu.to(torch.int16)).abs()
+    assert card.shape == (1, *RIG_CANVAS, 3) and int(card.max()) > 100
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-5
+
+
+def test_cli_stitch_at_1080p_matches_the_reference(cuda_device):
+    """A 16-frame 1080x1920 pair through ``cli stitch``'s stitcher and loop
+    at its defaults (I420 up, yuv420 down, bf16, K2): its canvas is past
+    the fixed 1024x1280 the cap used to be, and its frames equal the
+    plain reference's composite of the program's own meshes
+    (``benchmark/reference``) within the offline cells' limit."""
+    from benchmark.lib import compare
+    from benchmark.reference import geometry as G
+    from benchmark.reference import pipeline as R
+    from stabstitch2_tpu_torch import cli
+    from stabstitch2_tpu_torch.data.video_io import bgr_to_i420
+    from synthetic import make_two_view_clip
+
+    _, _, offline = _rig_cfg()
+    v1, v2 = make_two_view_clip(num_frames=16, height=RIG_HW[0],
+                                width=RIG_HW[1], overlap=0.5, shake_px=12.0,
+                                seed=8)
+    packed = [bgr_to_i420(v) for v in (v1, v2)]
+    st = cli.build_stitcher(cli.make_parser().parse_args(
+        ["stitch", "--test_path", "."]))
+    got = {}
+    done, failed = cli.stitch_stream(
+        st, [("rig", (packed[0], None, packed[1], None), None)],
+        lambda name, r: got.setdefault(name, r))
+    assert (done, failed) == (1, 0)
+    r = got["rig"]
+    assert r.frame_format == "i420" and r.frames.shape[0] == 16
+    assert r.canvas.pad_h > 1024 or r.canvas.pad_w > 1280
+    views = [G.i420_to_bgr_u8(torch.from_numpy(p).to(cuda_device))
+             for p in packed]
+    meshes = [R.scale_meshes(m.to(cuda_device), *RIG_HW, 360, 480)
+              for m in (r.smooth_mesh1, r.smooth_mesh2)]
+    canvas = R.plan_canvas(meshes, st.config.canvas_bucket, even=True)
+    assert compare.canvas_rule(dataclasses.asdict(r.canvas), canvas) == 0.0
+    want = R.composite_video(views, meshes, canvas, {
+        "download_format": "yuv420", "fusion_mode": st.config.fusion_mode,
+        "chunk": st.chunk})
+    gap = compare.frame_gap(r.frames, want.cpu().numpy())
+    assert gap <= offline["frame_gap"], gap
+
+
+def test_stitch_multi_at_1080p_matches_the_reference(cuda_device, tmp_path,
+                                                     monkeypatch):
+    """``cli stitch-multi`` at its defaults on a three-view 1080x1920 clip
+    of 16 JPEG frames a view: its frames (watched on their way to the mp4)
+    equal the plain reference's composite of the program's own chain
+    meshes and frames within the offline cells' limit."""
+    import cv2
+
+    from benchmark.lib import compare
+    from benchmark.reference import pipeline as R
+    from benchmark.traffic import clips
+    from stabstitch2_tpu_torch import cli
+
+    _, _, offline = _rig_cfg()
+    clip = tmp_path / "clip"
+    for k, frames in enumerate(clips.make_clip(3, 16, *RIG_HW, 0.5, 12.0,
+                                               seed=3)):
+        d = clip / f"video{k + 1}"
+        d.mkdir(parents=True)
+        for t, f in enumerate(frames):
+            cv2.imwrite(str(d / f"{t:06d}.jpg"), f)
+    seen = {}
+    begin, finish = (threeview.composite_chain_begin,
+                     threeview.stitch_multi_finish)
+
+    def watched_begin(images, meshes, config, chunk=8, model_size=None):
+        seen.update(images=[torch.cat(im) if isinstance(im, list) else im
+                            for im in images],
+                    meshes=[m.clone() for m in meshes], config=config,
+                    chunk=chunk)
+        return begin(images, meshes, config, chunk=chunk,
+                     model_size=model_size)
+
+    def watched_finish(state):
+        frames, fmt = finish(state)
+        seen.update(frames=np.array(frames), fmt=fmt)
+        return frames, fmt
+
+    monkeypatch.setattr(threeview, "composite_chain_begin", watched_begin)
+    monkeypatch.setattr(threeview, "stitch_multi_finish", watched_finish)
+    out = tmp_path / "rig.mp4"
+    assert cli.main(["stitch-multi", "--video_dir", str(clip), "--output",
+                     str(out)]) == 0
+    assert out.stat().st_size > 1000
+    assert seen["fmt"] == "i420" and seen["frames"].shape[0] == 16
+    assert seen["frames"].shape[2] > 1280
+    canvas = R.plan_canvas(seen["meshes"], seen["config"].canvas_bucket,
+                           even=True)
+    want = R.composite_video(seen["images"], seen["meshes"], canvas, {
+        "download_format": "yuv420",
+        "fusion_mode": seen["config"].fusion_mode, "chunk": seen["chunk"]})
+    gap = compare.frame_gap(seen["frames"], want.cpu().numpy())
+    assert gap <= offline["frame_gap"], gap
+
+
+def test_online_1080p_pushes_through_the_captured_step(cuda_device):
+    """The benchmark's program for ``ssd-1080p.online`` (the CLI's
+    stitcher, bf16 trunks, the seeded weights) pushed 16 pairs of
+    1080x1920 frames: one capture and a replay a push after it, the
+    window's emissions, and the last push against the plain reference
+    (``reference_push``) within the cell's limits."""
+    from benchmark.drivers import online as drv
+    from benchmark.lib import compare, program
+    from benchmark.lib.weights import make_state_dicts
+    from benchmark.reference import nets as N
+    from stabstitch2_tpu_torch.pipeline.online import OnlineStitcher
+
+    cfg, lim, _ = _rig_cfg()
+    seed, n = 2 ** 31 + 17, 16
+    mix = {"path_frames": n, "overlap": 0.5, "shake_px": 12.0}
+    weights = make_state_dicts(cfg, seed, cuda_device)
+    online = OnlineStitcher(program.stitcher(cfg, weights, cuda_device),
+                            emit_format="bgr")
+    path = drv.make_path(cfg, mix, seed)
+    counts = [len(out := online.push(path[0][i], path[1][i]))
+              for i in range(n)]
+    assert counts == [0] * 6 + [7] + [1] * (n - 7)
+    assert online.graphs.captures == 1 and online.graphs.replays == n - 1
+    assert out[0].shape[:2] == (online.canvas.out_h, online.canvas.out_w)
+    assert online.canvas.out_w > RIG_HW[1]
+    nets = N.build(cfg, weights, cuda_device)
+    (r1, r2), scaled, _, frame = drv.reference_push(
+        cfg, nets, drv.window_views(cfg, mix, path, n - 1, cuda_device),
+        list(online.window_smooth), program.canvas_fields(online.canvas))
+    gap = max(compare.mesh_gap(online.window_smooth[0].cpu(), r1.cpu()),
+              compare.mesh_gap(online.window_smooth[1].cpu(), r2.cpu()))
+    assert gap <= lim["mesh_gap_px"], gap
+    assert compare.canvas_outside(program.canvas_fields(online.canvas),
+                                  [m.cpu() for m in scaled]) == 0.0
+    fgap = compare.frame_gap(out[0][None], frame.cpu().numpy())
+    assert fgap <= lim["frame_gap"], fgap
 
 
 def test_capture_that_waits_raises(cuda_device):

@@ -6,7 +6,9 @@ count what the main paths do: per two-view video of the CLI's two-deep
 loop three ``wait`` spans (the canvas fetch and the composite's two event
 waits), one ``pack``, and ``stage`` spans whose ``stage_bytes`` are every
 byte staged for the card, frames included, with frames bit-equal to the
-same run unprofiled; one ``wait`` in a steady online push; one
+same run unprofiled; in a steady online push one ``upload``, one
+``composite`` (its ``emit_bytes`` the panorama's bytes) and one
+``wait``, and none of them with no profiler running; one
 ``junction`` (and its one extent fetch) per junction of an N-view chain;
 one ``tps_solve`` per TPS solve (one in a steady push), its systems
 counted; one ``loader_wait`` per batch of ``batch_iterator``; and a
@@ -144,10 +146,35 @@ def test_steady_push_waits_once(st, profiled):
     assert spans(table, "push") == 1 and spans(table, "wait") == 1
     assert spans(table, "stage") >= 1 and spans(table, "pack") == 1
     assert spans(table, "tps_solve") == 1          # the B=1 composite's
+    assert spans(table, "upload") == 1 and spans(table, "composite") == 1
+    assert table.counters["emit_bytes"] == out[0].nbytes
     push = table.spans["push"]
     inner = sum(table.spans[n].total_s
-                for n in ("stage", "wait", "pack", "tps_solve"))
+                for n in ("upload", "composite", "wait", "pack"))
     assert push.self_s == pytest.approx(push.total_s - inner, abs=1e-9)
+    # the frames' staging inside the upload, the solve inside the composite
+    for name in ("upload", "composite"):
+        assert table.spans[name].self_s < table.spans[name].total_s, name
+
+
+def test_steady_push_off_records_nothing(st, monkeypatch):
+    """With no profiler a steady push, its ``upload`` and ``composite``
+    spans and ``emit_bytes`` included, enters no ``record_function`` and
+    records nothing."""
+    v1, v2 = make_two_view_clip(st.config.window + 1, MH, MW, overlap=0.6,
+                                shake_px=2.0, seed=4)
+    online = OnlineStitcher(st)
+    for t in range(st.config.window):
+        online.push(v1[t], v2[t])
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    profiling.clear_table()
+    assert len(online.push(v1[-1], v2[-1])) == 1
+    table = profiling.table()
+    assert table.spans == {} and table.counters == {}
 
 
 @pytest.mark.parametrize("views", [3, 4])

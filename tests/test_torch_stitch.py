@@ -169,7 +169,9 @@ class TestModelInput:
 
     @pytest.mark.parametrize("hw,model_hw", [((480, 640), (360, 480)),
                                              ((96, 120), (128, 160)),
-                                             ((360, 480), (360, 480))])
+                                             ((360, 480), (360, 480)),
+                                             ((384, 480), (128, 160)),
+                                             ((1080, 1920), (360, 480))])
     def test_resize_matches_jax_image_resize(self, hw, model_hw):
         hi = np.random.default_rng(2).integers(0, 256, (2, *hw, 3), np.uint8)
         got = model_input(torch.from_numpy(hi), *model_hw)
